@@ -1,0 +1,27 @@
+"""Model layer: PixelNeRF field, encoder and factories."""
+
+import torch
+
+from .encoder import SpatialEncoder, make_encoder
+from .pixelnerf import CondState, PixelNeRF, make_mlp
+
+
+def make_model(conf, device="cuda", seed: int = 0) -> PixelNeRF:
+    """Build the model with random weights drawn from ``seed`` and move it,
+    in eval mode, to ``device`` (the card unless the caller asks for the
+    CPU)."""
+    model_type = conf.get_string("type", "pixelnerf")
+    if model_type != "pixelnerf":
+        raise NotImplementedError("Unsupported model type", model_type)
+    generator = torch.Generator().manual_seed(seed)
+    return PixelNeRF(conf, generator=generator).to(device).eval()
+
+
+__all__ = [
+    "CondState",
+    "PixelNeRF",
+    "SpatialEncoder",
+    "make_encoder",
+    "make_mlp",
+    "make_model",
+]
