@@ -6,18 +6,34 @@
 Phases, each of which fails the run (non-zero exit) when its check fails:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile csrc/field_mlp.cu with nvcc (sm_90a);
-  3. render: the flagship NeRF render (resnet34, 64 + 16 + 16 samples,
-     128x128 source views, random weights from a seed) at NS=1 and NS=2 in
-     bf16 and f32, through make_model / make_renderer; the kernel launch
-     counters are zeroed before these renders and must move; then the same
+  3. NeRF render: the flagship NeRF render (resnet34, 64 + 16 + 16
+     samples, 128x128 source views, random weights from a seed) at NS=1
+     and NS=2 in bf16 and f32, through make_model / make_renderer, with the
+     PE kernels (full_pe; pre_combine_pe + post_combine); then the same
      renders with model.use_fused_mlp = false, compared with the kernel's;
-  4. kernels: each fused field-MLP kernel against its plain twin on the
-     card, at the flagship widths (hidden 512, latent 512, PE 42, combine
-     layer 3, 5 blocks), in f32 and bf16, on 40,013 rows (a ragged tail)
-     and at the row counts of its launches in the renders of phase 3
-     (coarse and fine passes); times of the kernel, the twin and a cuBLAS
-     addmm chain at the coarse launch's rows, beside the least time the
-     card needs for that work.
+  4. YOLO render: the YOLO flagship at full width (ELAN backbone, 1792-d
+     latent, 5 x 512 ResnetFC, 21 outputs) at NS=3 in bf16, 16,384 rays of
+     a 128x128 target view, through pre_combine_pe + post_combine, then
+     plain, compared; the share of samples whose latent YOLO mode keeps;
+     an f32 render of 1,024 rays that no kernel may take (its 32 x 1792
+     f32 latent tile does not fit in shared memory);
+  5. detection: encode 3 source views, YOLO rays on the 32-px cell grid of
+     a 384x384 target view, YoloRenderer, decode_cells, nms_padded and
+     tp_fp_fn_padded on the card against seeded target boxes; the same
+     functions on the CPU must keep the same boxes; the host list NMS
+     (detect/boxes.py) beside them;
+  6. viewdirs render: the NeRF flagship with use_code_viewdirs = true (PE
+     over [xyz, viewdirs], outside the kernels) at NS=2 in bf16 and f32 and
+     at NS=1 in bf16, 16,384 rays, through pre_combine + post_combine, then
+     plain, compared;
+  7. kernels: each field-MLP kernel against its plain twin on the card, in
+     f32 and bf16, on 40,013 rows (a ragged tail) and at the row counts of
+     its launches in the renders above; pre_combine_pe and post_combine
+     also at the YOLO widths (bf16); times of the kernel, the twin and a
+     cuBLAS addmm chain at the first render launch's rows, beside the least
+     time the card needs for that work.
+The launch counters are zeroed just before each render path (3, 4, 5, 6)
+and read just after it; a kernel of a path that never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -41,9 +57,17 @@ REPLACES = {
     "full_pe": "pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:412",
     "pre_combine_pe": "pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:370",
     "post_combine": "pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:458",
+    "pre_combine": "pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:323",
 }
+KINDS = tuple(REPLACES)
 SOURCE = "pixelnerf_yolo_torch/csrc/field_mlp.cu"
-H, DL, D_IN, CL, NB, D_OUT = 512, 512, 42, 3, 5, 4
+H, CL, NB = 512, 3, 5
+# field widths: NeRF flagship (PE of xyz 42, viewdirs appended), the same
+# with use_code_viewdirs (PE of [xyz, viewdirs], 78), YOLO (1792-d latent,
+# 7 values x 3 anchors)
+NERF = {"d_in": 42, "dL": 512, "d_out": 4}
+VIEWDIRS = {"d_in": 78, "dL": 512, "d_out": 4}
+YOLO = {"d_in": 42, "dL": 1792, "d_out": 21}
 CHECK_ROWS = 40_013
 # kernel vs twin: f32 differs in summation order only; bf16 can flip one
 # bf16 rounding, which later layers carry: tolerance relative to max|ref|
@@ -61,6 +85,26 @@ RENDERS = [  # (source views, compute dtype, rays)
     (2, "bfloat16", 16384),
     (2, "float32", 16384),
 ]
+VIEWDIRS_RENDERS = [
+    (2, "bfloat16", 16384),
+    (2, "float32", 16384),
+    (1, "bfloat16", 16384),
+]
+# YOLO: 16,384 rays of the 128x128 target view (the bench's 65,536 cut
+# for run time); kernel vs plain aggregated prob and box values, bf16,
+# relative to max(1, max|plain|): the same bf16 rounding argument as
+# RENDER_TOL
+YOLO_SIZE = 128
+YOLO_F32_RAYS = 1024
+YOLO_TOL = 2e-2
+# detection (conf/exp/yolo.conf): anchors of the 32-px scale, thresholds
+DET_SIZE, CELL = 384, 32
+ANCHORS = [[0.02, 0.03], [0.04, 0.07], [0.08, 0.06]]
+# thresholds; MAX_OUT covers every box, so the padded NMS truncates none
+NMS_IOU, NMS_T, MATCH_IOU, MAX_OUT = 0.75, 0.45, 0.2, 512
+# The YOLO scene: tests/torch_parity.py (yolo_extrinsics, yolo_scene)
+# holds the same numbers for the CPU tests; a change here goes there too.
+YOLO_NEAR, YOLO_FAR = 1.0, 3.0
 
 
 def nvidia_smi() -> str:
@@ -88,16 +132,17 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def flagship_mlp(dtype, device, seed=0):
-    """Flagship-width ResnetFC with random weights; fc_1 (zero-init) gets
-    small noise so that every block does work."""
+def field_mlp_of(spec, dtype, device, seed=0):
+    """A ResnetFC of the given widths with random weights; fc_1
+    (zero-init) gets small noise so that every block does work."""
     import torch
 
     from pixelnerf_yolo_torch.nn.resnetfc import ResnetFC
 
     g = torch.Generator().manual_seed(seed)
-    mlp = ResnetFC(D_IN, d_out=D_OUT, n_blocks=NB, d_latent=DL, d_hidden=H,
-                   combine_layer=CL, dtype=dtype, generator=g)
+    mlp = ResnetFC(spec["d_in"], d_out=spec["d_out"], n_blocks=NB,
+                   d_latent=spec["dL"], d_hidden=H, combine_layer=CL,
+                   dtype=dtype, generator=g)
     perturb_fc1(mlp, g)
     return mlp.to(device)
 
@@ -112,22 +157,25 @@ def perturb_fc1(module, generator, std=0.01):
                        * std)
 
 
-def field_work(kind: str, rows: int, elt: int, w_bytes: int):
+def field_work(kind: str, spec, rows: int, elt: int, w_bytes: int):
     """(flops, bytes) that a kernel's function needs: multiply-adds of its
     layers; its inputs read once, its outputs written once, its weights."""
-    pe = D_IN * H + CL * DL * H + 2 * CL * H * H
-    post = 2 * (NB - CL) * H * H + H * D_OUT
+    d_in, dL, d_out = spec["d_in"], spec["dL"], spec["d_out"]
+    pre = d_in * H + CL * dL * H + 2 * CL * H * H
+    post = 2 * (NB - CL) * H * H + H * d_out
     if kind == "full_pe":
-        mac, io = pe + post, 6 * 4 + DL * elt + D_OUT * 4
+        mac, io = pre + post, 6 * 4 + dL * elt + d_out * 4
     elif kind == "pre_combine_pe":
-        mac, io = pe, 6 * 4 + DL * elt + H * elt
+        mac, io = pre, 6 * 4 + dL * elt + H * elt
+    elif kind == "pre_combine":
+        mac, io = pre, d_in * elt + dL * elt + H * elt
     else:
-        mac, io = post, H * elt + D_OUT * 4
+        mac, io = post, H * elt + d_out * 4
     return 2 * mac * rows, io * rows + w_bytes
 
 
-def bound(kind, rows, dtype_name, elt, w_bytes):
-    flops, nbytes = field_work(kind, rows, elt, w_bytes)
+def bound(kind, spec, rows, dtype_name, elt, w_bytes):
+    flops, nbytes = field_work(kind, spec, rows, elt, w_bytes)
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -145,14 +193,17 @@ def library_chain(kind, *args):
         return torch.addmm(b.to(wt.dtype), a, wt)
 
     if kind != "post_combine":
-        base, latent, w, code = args
-        cdt = latent.dtype
-        x = lin(pe_features(base, code).to(cdt), w.w_in, w.b_in)
+        if kind == "pre_combine":
+            zfeat, latent, w = args
+        else:
+            base, latent, w, code = args
+            zfeat = pe_features(base, code).to(latent.dtype)
+        x = lin(zfeat, w.w_in, w.b_in)
         for i in range(w.wz.shape[0]):
             x = x + lin(latent, w.wz[i], w.bz[i])
             net = lin(torch.relu(x), w.w0[i], w.b0[i])
             x = x + lin(torch.relu(net), w.w1[i], w.b1[i])
-        if kind == "pre_combine_pe":
+        if kind != "full_pe":
             return x
     else:
         x, w = args
@@ -162,78 +213,94 @@ def library_chain(kind, *args):
     return lin(torch.relu(x), w.w_out, w.b_out).float()
 
 
-def check_kernels(device, render_rows):
-    """Phase 4.  render_rows[kind] lists the row counts of that kernel's
-    launches in the renders of phase 3 (coarse pass first, where its time
-    is taken)."""
+def check_kernel(kind, spec, dtype_name, rows_list, device):
+    """Hold one kernel against its twin at each row count of rows_list and
+    time it at rows_list[1] (the first render launch's rows).  Returns
+    (ok, result)."""
     import torch
 
     from pixelnerf_yolo_torch.nn.code import PositionalEncoding
     from pixelnerf_yolo_torch.ops import field_mlp as fm
 
+    cdt = getattr(torch, dtype_name)
+    elt = torch.empty((), dtype=cdt).element_size()
+    w = fm.stack_params(field_mlp_of(spec, cdt, device), cdt)
+    w_bytes = sum(t.numel() * t.element_size() for t in vars(w).values())
     code = PositionalEncoding(6, 3, 1.5, True).to(device)
-    results = {}
-    ok = True
-    for dtype_name in ("bfloat16", "float32"):
-        cdt = getattr(torch, dtype_name)
-        elt = torch.empty((), dtype=cdt).element_size()
-        w = fm.stack_params(flagship_mlp(cdt, device), cdt)
-        w_bytes = sum(t.numel() * t.element_size()
-                      for t in vars(w).values())
-        g = torch.Generator(device=device).manual_seed(1)
+    code_vd = PositionalEncoding(6, 6, 1.5, True).to(device)
+    g = torch.Generator(device=device).manual_seed(1)
+    kernel = getattr(fm, kind)
+    plain = getattr(fm, kind + "_plain")
 
-        def inputs(kind, rows):
-            base = torch.rand((rows, 6), generator=g, device=device) * 2 - 1
-            base[:, 3:] /= base[:, 3:].norm(dim=-1, keepdim=True)
-            lat = torch.randn((rows, DL), generator=g, device=device).to(cdt)
-            base = base.contiguous()
-            if kind == "post_combine":
-                h = fm.pre_combine_pe_plain(base, lat, w, code).contiguous()
-                return (h, w)
-            return (base, lat, w, code)
+    def inputs(rows):
+        base = torch.rand((rows, 6), generator=g, device=device) * 2 - 1
+        base[:, 3:] /= base[:, 3:].norm(dim=-1, keepdim=True)
+        base = base.contiguous()
+        lat = torch.randn((rows, spec["dL"]), generator=g,
+                          device=device).to(cdt)
+        if kind == "post_combine":
+            return (fm.pre_combine_pe_plain(base, lat, w, code).contiguous(),
+                    w)
+        if kind == "pre_combine":
+            return (code_vd(base).to(cdt).contiguous(), lat, w)
+        return (base, lat, w, code)
 
-        for kind in ("full_pe", "pre_combine_pe", "post_combine"):
-            kernel = getattr(fm, kind)
-            plain = getattr(fm, kind + "_plain")
-            worst = 0.0
-            for i, rows in enumerate([CHECK_ROWS, *render_rows[kind]]):
-                args = inputs(kind, rows)
-                got = kernel(*args)
-                ref = plain(*args)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = max(1.0, ref.float().abs().max().item())
-                tol = KERNEL_TOL[dtype_name] * scale
-                passed = bool(torch.isfinite(got).all()) and err <= tol
-                ok &= passed
-                worst = max(worst, err)
-                print(f"kernel {kind:15s} {dtype_name:8s} rows={rows} "
-                      f"max_abs_err={err:.3e} tol={tol:.3e} "
-                      f"({KERNEL_TOL[dtype_name]} x max|ref| {scale:.3g}) "
-                      f"{'ok' if passed else 'FAILED'}", flush=True)
-                del got, ref
-                if i == 1:  # the coarse launch's rows: timed
-                    reps = 3
-                    ms = time_ms(lambda: kernel(*args), reps)
-                    plain_ms = time_ms(lambda: plain(*args), reps)
-                    lib_ms = time_ms(lambda: library_chain(kind, *args), reps)
-                    bound_ms, bound_by = bound(kind, rows, dtype_name, elt,
-                                               w_bytes)
-                    print(f"  timed at rows={rows}: kernel_ms={ms:.3f} "
-                          f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-                          f"bound_ms={bound_ms:.3f} ({bound_by}) "
-                          f"kernel/bound={ms / bound_ms:.1f}x", flush=True)
-                    results[(kind, dtype_name)] = {
-                        "rows": rows, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by,
-                    }
-                del args
-                torch.cuda.empty_cache()
-            results[(kind, dtype_name)]["max_abs_err"] = worst
-            results[(kind, dtype_name)]["checked_rows"] = [
-                CHECK_ROWS, *render_rows[kind]]
+    ok, worst, res = True, 0.0, {}
+    for i, rows in enumerate(rows_list):
+        args = inputs(rows)
+        got = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        tol = KERNEL_TOL[dtype_name] * scale
+        passed = bool(torch.isfinite(got).all()) and err <= tol
+        ok &= passed
+        worst = max(worst, err)
+        print(f"kernel {kind:15s} {dtype_name:8s} dL={spec['dL']} "
+              f"d_out={spec['d_out']} rows={rows} max_abs_err={err:.3e} "
+              f"tol={tol:.3e} ({KERNEL_TOL[dtype_name]} x max|ref| "
+              f"{scale:.3g}) {'ok' if passed else 'FAILED'}", flush=True)
+        del got, ref
+        if i == 1:  # the first render launch's rows: timed
+            reps = 3
+            ms = time_ms(lambda: kernel(*args), reps)
+            plain_ms = time_ms(lambda: plain(*args), reps)
+            lib_ms = time_ms(lambda: library_chain(kind, *args), reps)
+            bound_ms, bound_by = bound(kind, spec, rows, dtype_name, elt,
+                                       w_bytes)
+            print(f"  timed at rows={rows}: kernel_ms={ms:.3f} "
+                  f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+                  f"bound_ms={bound_ms:.3f} ({bound_by}) "
+                  f"kernel/bound={ms / bound_ms:.1f}x", flush=True)
+            res.update(rows=rows, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        del args
+        torch.cuda.empty_cache()
+    res.update(max_abs_err=worst, checked_rows=list(rows_list))
+    return ok, res
+
+
+def check_kernels(device, render_rows, yolo_rows):
+    """Phase 7.  render_rows[kind] lists the row counts of that kernel's
+    launches in the NeRF renders (coarse pass first, where its time is
+    taken); yolo_rows[kind] those of the YOLO render."""
+    ok, results = True, {}
+    for kind in KINDS:
+        spec = VIEWDIRS if kind == "pre_combine" else NERF
+        for dtype_name in ("bfloat16", "float32"):
+            kok, results[(kind, dtype_name)] = check_kernel(
+                kind, spec, dtype_name, [CHECK_ROWS, *render_rows[kind]],
+                device)
+            ok &= kok
+    for kind in ("pre_combine_pe", "post_combine"):
+        kok, results[(kind, "yolo")] = check_kernel(
+            kind, YOLO, "bfloat16", [CHECK_ROWS, *yolo_rows[kind]], device)
+        ok &= kok
     return ok, results
+
+
+# -- scenes --------------------------------------------------------------
 
 
 def flagship_scene(ns, n_rays, device):
@@ -255,9 +322,39 @@ def flagship_scene(ns, n_rays, device):
     return images.clip(-1, 1), poses[None], np.float32(120.0), rays
 
 
-def render_models(device):
-    """The flagship model per compute dtype, weights from seed 0, each with
-    the kernels (use_fused_mlp auto) and without (false)."""
+def yolo_scene(ns, size, seed=0):
+    """(1, NS, 3, S, S) images, (1, NS, 4, 4) world-to-camera extrinsics,
+    focal (1, 2), c (1, 2) and the target camera's (1, 4, 4) extrinsic.
+    The target camera sits at the origin looking down +z; its samples lie
+    at world z in [near, far].  View 0 sits (near + far) / 2 behind it
+    (samples on both sides of its z = 0); views 1 and 2 are the target
+    camera turned 180 degrees about y (every sample at camera z < 0, where
+    YOLO mode keeps the latent), the second moved sideways."""
+    import numpy as np
+
+    flip = np.diag([-1.0, 1.0, -1.0, 1.0]).astype(np.float32)
+    views = [np.eye(4, dtype=np.float32), flip.copy(), flip.copy()]
+    views[0][:3, 3] = [0.05, -0.03, -(YOLO_NEAR + YOLO_FAR) / 2]
+    views[2][:3, 3] = [0.1, 0.05, 0.0]
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(1, ns, 3, size, size)).astype(np.float32)
+    focal = np.full((1, 2), size * 0.9, np.float32)
+    c = np.full((1, 2), size / 2.0, np.float32)
+    return (images.clip(-1, 1), np.stack(views[:ns])[None], focal, c,
+            np.eye(4, dtype=np.float32)[None])
+
+
+# -- models and renders --------------------------------------------------
+
+
+def build_models(device, out_scale=0.05, **conf_args):
+    """The flagship model per compute dtype, weights from seed 0, and its
+    renderer.  fc_1 gets small noise and lin_out is scaled by out_scale to
+    put the outputs in their working range: in NeRF mode the hidden state
+    of these random weights has a std of ~50 (the 512-d latents, std ~18,
+    feed it), and 1/20 gives a mean density of ~1 per unit depth; in YOLO
+    mode the ELAN latents give logits ~20x smaller (objectness within
+    +-0.2 at 1/20, so 1 gives logits of a few units)."""
     import torch
 
     from pixelnerf_yolo_torch.config.flagship import flagship_conf
@@ -266,16 +363,13 @@ def render_models(device):
 
     models = {}
     for dtype_name in ("bfloat16", "float32"):
-        conf = flagship_conf(compute_dtype=dtype_name)
+        conf = flagship_conf(compute_dtype=dtype_name, **conf_args)
         model = make_model(conf.get_config("model"), device=device, seed=0)
         perturb_fc1(model, torch.Generator().manual_seed(2))
-        # the hidden state of these random weights has a std of ~50 (the
-        # layer3 latents, std ~18, feed it); lin_out scaled by 1/20 puts
-        # rgb and density in their working range: mean density ~1 per unit
-        # depth, so the composite weights are neither ~0 nor one spike
         with torch.no_grad():
             for mlp in (model.mlp_coarse, model.mlp_fine):
-                mlp.lin_out.weight.mul_(0.05)
+                if mlp is not None:
+                    mlp.lin_out.weight.mul_(out_scale)
         models[dtype_name] = (model, make_renderer(conf, device=device))
     return models
 
@@ -295,78 +389,32 @@ def render(models, ns, dtype_name, n_rays, device, fused: str):
     return out, time.perf_counter() - t0
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    print(f"device: {kind} | nvidia-smi name, power.limit: {smi} | "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    ok = run(torch.device("cuda"))
-    if not ok:
-        print("chip_smoke: FAILED", file=sys.stderr)
-        return 1
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
-
-
-def run(device) -> bool:
-    """Phases 2-4; prints the kernels line; True when every check held."""
-    import torch
-
+def nerf_path(models, renders, device, label):
+    """Kernel renders of one NeRF path; the counts are zeroed before and
+    read after.  Returns (outputs, launches)."""
     from pixelnerf_yolo_torch.ops import field_mlp as fm
 
-    t0 = time.perf_counter()
-    fm.load_library()
-    print(f"build: {fm.build_info['path']} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in fm.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
-
-    models = render_models(device)
-    # warm up cuDNN and the allocator on a small render, before the counts
-    render(models, 1, "bfloat16", 1024, device, "auto")
-
-    # -- the main path: the renders through the kernels ---------------------
     fm.reset_launches()
-    kernel_out = {}
-    for ns, dtype_name, n_rays in RENDERS:
+    outs = {}
+    for ns, dtype_name, n_rays in renders:
         out, sec = render(models, ns, dtype_name, n_rays, device, "auto")
-        kernel_out[(ns, dtype_name)] = out
-        print(f"render NS={ns} {dtype_name:8s} rays={n_rays} kernels: "
-              f"{sec:.3f} s, {n_rays / sec:.1f} rays/s", flush=True)
+        outs[(ns, dtype_name)] = out
+        print(f"render {label} NS={ns} {dtype_name:8s} rays={n_rays} "
+              f"kernels: {sec:.3f} s, {n_rays / sec:.1f} rays/s", flush=True)
     launches = dict(fm.launches)
-    print(f"launches on the main path: {launches}", flush=True)
-    ok = launches["full_pe"] > 0 and launches["pre_combine_pe"] > 0 \
-        and launches["post_combine"] > 0
-    if not ok:
-        print("FAILED: a kernel of the path was never launched")
+    print(f"launches on the {label} path: {launches}", flush=True)
+    return outs, launches
 
-    # row counts of the kernels' launches in the renders above: a chunk of
-    # rays times the coarse samples, then times the fine pass's union;
-    # full_pe at NS=1, pre_combine_pe (x 2 views) and post_combine at NS=2
-    r = models["bfloat16"][1]
-    cb1 = r._chunk_rays(RENDERS[0][2], 1)
-    cb2 = r._chunk_rays(RENDERS[2][2], 2)
-    ks = (r.n_coarse, r.n_coarse + r.n_fine)
-    render_rows = {"full_pe": [cb1 * k for k in ks],
-                   "pre_combine_pe": [cb2 * k * 2 for k in ks],
-                   "post_combine": [cb2 * k for k in ks]}
 
-    # -- the same renders without the kernels, compared ---------------------
-    for ns, dtype_name, n_rays in RENDERS:
+def compare_plain(models, renders, kernel_out, device, label) -> bool:
+    """The same renders without the kernels, compared."""
+    import torch
+
+    ok = True
+    for ns, dtype_name, n_rays in renders:
         plain, sec = render(models, ns, dtype_name, n_rays, device, "false")
         got = kernel_out[(ns, dtype_name)]
-        print(f"render NS={ns} {dtype_name:8s} rays={n_rays} plain:   "
+        print(f"render {label} NS={ns} {dtype_name:8s} rays={n_rays} plain:   "
               f"{sec:.3f} s, {n_rays / sec:.1f} rays/s")
         tol = RENDER_TOL[dtype_name]
         for p in ("coarse", "fine"):
@@ -381,26 +429,336 @@ def run(device) -> bool:
                       f"tol={tol} "
                       f"range=[{a.min().item():.3f}, {a.max().item():.3f}] "
                       f"{'ok' if good else 'FAILED'}")
-    del kernel_out
+    return ok
+
+
+def yolo_render(model, renderer, n_rays, device, fused: str, size=YOLO_SIZE,
+                cell=1):
+    """A YOLO render of the target view's first n_rays rays on a grid of
+    cell-px cells; returns (out, seconds, cond, rays)."""
+    import torch
+
+    from pixelnerf_yolo_torch.utils.camera import gen_rays_yolo
+
+    model.use_fused_mlp = fused
+    images, poses, focal, c, target = yolo_scene(3, size)
+    cond = model.encode(images, poses, focal, c=c)
+    side = size // cell
+    rays = gen_rays_yolo(torch.from_numpy(target).to(device), side, side,
+                         focal[0] / cell, c[0] / cell, YOLO_NEAR,
+                         YOLO_FAR).reshape(1, -1, 8)[:, :n_rays]
+    g = torch.Generator(device=device).manual_seed(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = renderer(model, cond, rays, generator=g)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, cond, rays
+
+
+def kept_latent_share(model, cond, rays, n_rays=512):
+    """Share of (source view, sample) pairs, over n_rays rays and 128
+    depths each, whose latent YOLO mode keeps (not zeroed behind the
+    camera plane, not NaN, not out of the image)."""
+    import torch
+
+    r = rays[0, :n_rays]
+    z = torch.linspace(YOLO_NEAR, YOLO_FAR, 128, device=r.device)
+    pts = r[:, None, :3] + z[None, :, None] * r[:, None, 3:6]
+    with torch.no_grad():
+        lat = model.project_latent(cond, pts.reshape(1, -1, 3))
+    kept = (lat.float().abs().amax(dim=-1) > 0).float()  # (NS, N)
+    return kept.mean().item(), kept.mean(dim=1).tolist()
+
+
+def yolo_path(models, device):
+    """Phase 4.  Returns (ok, launches, bf16 chunk rays)."""
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    model, renderer = models["bfloat16"]
+    n_rays = YOLO_SIZE * YOLO_SIZE
+    fm.reset_launches()
+    got, sec, cond, rays = yolo_render(model, renderer, n_rays, device,
+                                       "auto")
+    launches = dict(fm.launches)
+    print(f"render YOLO NS=3 bfloat16 rays={n_rays} kernels: {sec:.3f} s, "
+          f"{n_rays / sec:.1f} rays/s", flush=True)
+    print(f"launches on the YOLO path: {launches}", flush=True)
+    ok = launches["pre_combine_pe"] > 0 and launches["post_combine"] > 0
+    share, per_view = kept_latent_share(model, cond, rays)
+    print(f"  latents kept (z < 0, in the image): {share:.4f} of samples; "
+          f"per source view {[round(s, 4) for s in per_view]}")
+    if not share > 0:
+        print("FAILED: every latent of the YOLO scene is zeroed")
+        ok = False
+    plain, psec, _, _ = yolo_render(model, renderer, n_rays, device, "false")
+    print(f"render YOLO NS=3 bfloat16 rays={n_rays} plain:   {psec:.3f} s, "
+          f"{n_rays / psec:.1f} rays/s")
+    for name, sl in (("prob", slice(0, 1)), ("boxes", slice(1, 7))):
+        a, b = got[..., sl].float(), plain[..., sl].float()
+        d = (a - b).abs().flatten()
+        scale = max(1.0, b.abs().max().item())
+        tol = YOLO_TOL * scale
+        good = (bool(torch.isfinite(a).all()) and a.shape == b.shape
+                and d.max().item() <= tol)
+        ok &= good
+        print(f"  {name:5s} max|diff|={d.max().item():.3e} "
+              f"p99={d.quantile(0.99).item():.3e} tol={tol:.3e} "
+              f"range=[{a.min().item():.3f}, {a.max().item():.3f}] "
+              f"{'ok' if good else 'FAILED'}")
+    cb = renderer.chunk_rays_for(n_rays, 3, cond.latent_flat.shape[-1])
+    cb = -(-n_rays // -(-n_rays // cb))  # split evenly, as the renderer does
+    del got, plain, cond
     torch.cuda.empty_cache()
 
-    kok, res = check_kernels(device, render_rows)
+    # f32 at 1792-d latents: the kernels' 32 x 1792 f32 latent tile takes
+    # 229,376 B, 393,216 B with the other tiles, over the 232,448 B of
+    # shared memory a block can have; the plain path runs
+    model32, renderer32 = models["float32"]
+    fm.reset_launches()
+    out32, sec32, _, _ = yolo_render(model32, renderer32, YOLO_F32_RAYS,
+                                     device, "auto")
+    n32 = sum(fm.launches.values())
+    good = n32 == 0 and bool(torch.isfinite(out32).all())
+    ok &= good
+    print(f"render YOLO NS=3 float32 rays={YOLO_F32_RAYS}: {sec32:.3f} s, "
+          f"kernel launches {n32} (0 expected) {'ok' if good else 'FAILED'}")
+    return ok, launches, cb
+
+
+def standard_nms(bboxes, iou_threshold, threshold, allow_empty=False):
+    """``boxes.nms`` with standard greedy suppression (``map._greedy_nms``)
+    in place of the reference's list quirk; the same filters."""
+    import numpy as np
+
+    from pixelnerf_yolo_torch.detect.map import _greedy_nms
+
+    rows = [b for b in bboxes if b[1] > threshold
+            and 10e-4 < b[4] < 10e4 and 10e-4 < b[5] < 10e4]
+    if not rows:
+        return [], 0.0, 0
+    kept = _greedy_nms(np.asarray(rows, np.float64), iou_threshold)
+    return kept.tolist(), max(b[1] for b in bboxes), len(rows)
+
+
+def nms_check(pred, tgt, label) -> bool:
+    """nms_padded and tp_fp_fn_padded on the card against the same
+    functions on the CPU (the same boxes kept, the same counts), and the
+    host copy detect/boxes.py beside them: with standard greedy NMS in
+    place of its list NMS, the host matching must give the card's counts
+    (so the two differ only by the list-NMS quirk)."""
+    import torch
+
+    from pixelnerf_yolo_torch.detect import (boxes, nms_padded,
+                                             tp_fp_fn_padded)
+
+    kept, valid = nms_padded(pred, NMS_IOU, NMS_T, MAX_OUT)
+    card = tp_fp_fn_padded(tgt, pred, NMS_IOU, NMS_T, MATCH_IOU, MAX_OUT)
+    torch.cuda.synchronize()
+    kept_c, valid_c = nms_padded(pred.cpu(), NMS_IOU, NMS_T, MAX_OUT)
+    cpu = tp_fp_fn_padded(tgt.cpu(), pred.cpu(), NMS_IOU, NMS_T, MATCH_IOU,
+                          MAX_OUT)
+    card, cpu = tuple(int(x) for x in card), tuple(int(x) for x in cpu)
+    same = (torch.equal(valid.cpu(), valid_c)
+            and torch.equal(kept.cpu(), kept_c) and card == cpu)
+    t_list, p_list = tgt.cpu().tolist(), pred.cpu().tolist()
+    host_kept, _, _ = boxes.nms(p_list, NMS_IOU, NMS_T)
+    host = boxes.calculate_tp_fp_fn(t_list, p_list, NMS_IOU, NMS_T, MATCH_IOU)
+    list_nms = boxes.nms
+    boxes.nms = standard_nms
+    try:
+        host_std = boxes.calculate_tp_fp_fn(t_list, p_list, NMS_IOU, NMS_T,
+                                            MATCH_IOU)
+    finally:
+        boxes.nms = list_nms
+    quirk_only = host_std == card
+    n_alive = int((pred[:, 1] > NMS_T).sum())
+    print(f"  {label}: {pred.shape[0]} boxes, {n_alive} above {NMS_T}; "
+          f"card NMS kept {int(valid.sum())}, host list NMS kept "
+          f"{len(host_kept)}")
+    print(f"    tp/fp/fn card {card}, CPU {cpu}, host detect/boxes.py {host} "
+          f"(with standard NMS {host_std}); card == CPU: {same}; host "
+          f"differs only by the list-NMS quirk: {quirk_only}")
+    return same and quirk_only
+
+
+def detection_path(models, device):
+    """Phase 5.  Returns (ok, launches)."""
+    import numpy as np
+    import torch
+
+    from pixelnerf_yolo_torch.detect import decode_cells
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    model, renderer = models["bfloat16"]
+    side = DET_SIZE // CELL
+    fm.reset_launches()
+    out, sec, _, _ = yolo_render(model, renderer, side * side, device, "auto",
+                                 size=DET_SIZE, cell=CELL)
+    A = renderer.num_anchors_per_scale
+    anchors = torch.tensor(ANCHORS, device=device)
+    pred = decode_cells(out.float().reshape(1, side, side, A, 7), anchors)[0]
+    torch.cuda.synchronize()
+    launches = dict(fm.launches)
+    print(f"detection: {side}x{side} cells x {A} anchors, render "
+          f"{sec:.3f} s; launches on the detection path: {launches}",
+          flush=True)
+    rng = np.random.default_rng(0)
+
+    def boxes_of(n, centers, spread, wh):
+        """n [class, score, x, y, w, h] rows around the given centres."""
+        xy = centers[rng.integers(0, len(centers), n)] \
+            + rng.normal(size=(n, 2)) * spread
+        b = np.concatenate([rng.integers(0, 2, (n, 1)),
+                            rng.uniform(0, 1, (n, 1)), xy,
+                            rng.uniform(*wh, size=(n, 2))], axis=1)
+        return torch.from_numpy(b).float().to(device)
+
+    # targets: 3 boxes around predicted centres and 3 random ones, score
+    # 1, then 10 padding rows
+    picks = pred[torch.from_numpy(rng.choice(pred.shape[0], 3,
+                                             replace=False)).to(device)]
+    tgt = torch.cat([boxes_of(3, picks[:, 2:4].cpu().numpy(), 0.002,
+                              (0.001, 0.01)),
+                     boxes_of(3, rng.uniform(0.2, 0.8, (1, 2)), 0.2,
+                              (0.05, 0.3))])
+    tgt[:, 1] = 1.0
+    tgt = torch.cat([tgt, torch.zeros((10, 6), device=device)])
+    ok = nms_check(pred, tgt, "decoded predictions")
+    # random weights predict boxes far smaller than a cell, which never
+    # overlap; seeded clusters of larger boxes make the NMS suppress
+    clusters = rng.uniform(0.2, 0.8, (6, 2))
+    ok &= nms_check(boxes_of(400, clusters, 0.01, (0.05, 0.25)),
+                    torch.cat([boxes_of(8, clusters, 0.01, (0.1, 0.2)),
+                               torch.zeros((8, 6), device=device)]),
+                    "seeded clustered boxes")
+    ok &= launches["pre_combine_pe"] > 0 and launches["post_combine"] > 0
+    if not ok:
+        print("FAILED: detection")
+    return ok, launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"device: {kind} | nvidia-smi name, power.limit: {smi} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    ok = run(torch.device("cuda"))
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run(device) -> bool:
+    """Phases 2-7; prints the kernels line; True when every check held."""
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    t0 = time.perf_counter()
+    fm.load_library()
+    print(f"build: {fm.build_info['path']} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for line in fm.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas:", line.strip())
+
+    nerf = build_models(device)
+    yolo = build_models(device, out_scale=1.0, yolo=True, backbone="custom")
+    viewdirs = build_models(device, use_code_viewdirs=True)
+    # warm up cuDNN and the allocator on small renders, before the counts
+    render(nerf, 1, "bfloat16", 1024, device, "auto")
+    yolo_render(*yolo["bfloat16"], 256, device, "auto")
+
+    # -- the render paths, each between a reset and a read of the counts --
+    nerf_out, nerf_launches = nerf_path(nerf, RENDERS, device, "NeRF")
+    ok = all(nerf_launches[k] > 0
+             for k in ("full_pe", "pre_combine_pe", "post_combine"))
+    if not ok:
+        print("FAILED: a kernel of the NeRF path was never launched")
+    ok &= compare_plain(nerf, RENDERS, nerf_out, device, "NeRF")
+    del nerf_out
+    torch.cuda.empty_cache()
+
+    yok, yolo_launches, yolo_cb = yolo_path(yolo, device)
+    ok &= yok
+    dok, det_launches = detection_path(yolo, device)
+    ok &= dok
+
+    vd_out, vd_launches = nerf_path(viewdirs, VIEWDIRS_RENDERS, device,
+                                    "viewdirs")
+    good = (vd_launches["pre_combine"] > 0 and vd_launches["post_combine"] > 0
+            and vd_launches["full_pe"] == 0
+            and vd_launches["pre_combine_pe"] == 0)
+    if not good:
+        print("FAILED: the viewdirs path must run pre_combine + "
+              "post_combine and no PE kernel")
+    ok &= good
+    ok &= compare_plain(viewdirs, VIEWDIRS_RENDERS, vd_out, device,
+                        "viewdirs")
+    del vd_out
+    torch.cuda.empty_cache()
+
+    # row counts of the kernels' launches in the renders above: a chunk of
+    # rays times the coarse samples, then times the fine pass's union;
+    # full_pe at NS=1, pre_combine_pe / pre_combine (x 2 views) and
+    # post_combine at NS=2; YOLO: a chunk x 128 samples (x 3 views)
+    r = nerf["bfloat16"][1]
+    cb1 = r._chunk_rays(RENDERS[0][2], 1)
+    cb2 = r._chunk_rays(RENDERS[2][2], 2)
+    ks = (r.n_coarse, r.n_coarse + r.n_fine)
+    render_rows = {"full_pe": [cb1 * k for k in ks],
+                   "pre_combine_pe": [cb2 * k * 2 for k in ks],
+                   "post_combine": [cb2 * k for k in ks],
+                   "pre_combine": [cb2 * k * 2 for k in ks]}
+    k_yolo = yolo["bfloat16"][1].n_coarse
+    yolo_rows = {"pre_combine_pe": [yolo_cb * k_yolo * 3],
+                 "post_combine": [yolo_cb * k_yolo]}
+    del nerf, yolo, viewdirs
+    torch.cuda.empty_cache()
+
+    kok, res = check_kernels(device, render_rows, yolo_rows)
     ok &= kok
+    paths = {"nerf": nerf_launches, "yolo": yolo_launches,
+             "detection": det_launches, "viewdirs": vd_launches}
     kernels = []
-    for name in ("full_pe", "pre_combine_pe", "post_combine"):
+    for name in KINDS:
         b, f = res[(name, "bfloat16")], res[(name, "float32")]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in paths.values()),
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": b["library_ms"],
             "rows": b["rows"], "checked_rows": b["checked_rows"],
             "dtype": "bfloat16",
+            "launches_by_path": {k: p[name] for k, p in paths.items()},
             "float32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
-        })
+        }
+        if (name, "yolo") in res:
+            y = res[(name, "yolo")]
+            entry["yolo_bfloat16"] = {k: y[k] for k in (
+                "rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     return ok
 

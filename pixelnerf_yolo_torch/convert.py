@@ -11,6 +11,13 @@ reference PixelNeRFNet key names, so that the JAX package's
   .../{downsample_conv, BatchNorm_2}        -> ....downsample.{0, 1}
   mlp_*/lin_in, lin_out, lin_z_N, block_N   -> mlp_*.lin_in, lin_out,
                                                lin_z.N, blocks.N
+The custom ELAN backbone has no reference key names (the reference's
+external YOLOv7 is not vendored), so its port modules carry the flax names
+and a flax path maps onto its key by joining it with dots:
+
+  encoder/model/ConvBnAct_i/{Conv_0, BatchNorm_0}
+  encoder/model/ELANBlock_j/ConvBnAct_k/{Conv_0, BatchNorm_0}
+
 Dense kernels (in, out) become weights (out, in); conv kernels HWIO become
 OIHW; BatchNorm scale/bias/mean/var become weight/bias/running_mean/
 running_var.
@@ -67,6 +74,22 @@ def _resnet(sd: dict, prefix: str, params: dict, stats: dict):
                 _bn(sd, key + torch_name, bp[bn_name], stats[name][bn_name])
 
 
+def _yolo_backbone(sd: dict, prefix: str, params: dict, stats: dict):
+    """Every Conv_0 / BatchNorm_0 leaf of the ELAN tree; raises on a leaf
+    it does not map."""
+    for name, p in params.items():
+        key = prefix + name
+        if name == "Conv_0" and set(p) == {"kernel"}:
+            _conv(sd, key, p)
+        elif name == "BatchNorm_0" and set(p) == {"scale", "bias"} \
+                and set(stats[name]) == {"mean", "var"}:
+            _bn(sd, key, p, stats[name])
+        elif re.fullmatch(r"(ConvBnAct|ELANBlock)_\d+", name):
+            _yolo_backbone(sd, key + ".", p, stats[name])
+        else:
+            raise NotImplementedError(f"{key} has no port counterpart")
+
+
 def resnetfc_state_dict(params: dict, prefix: str = "") -> dict:
     """Flax ResnetFC params -> port ResnetFC state_dict entries."""
     sd: dict = {}
@@ -87,9 +110,15 @@ def from_jax_variables(variables: dict) -> dict:
     """JAX ``{"params", "batch_stats"}`` pytree -> port state_dict (CPU)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    extra = set(params) - {"encoder", "mlp_coarse", "mlp_fine"}
+    if extra:
+        raise NotImplementedError(f"{sorted(extra)} have no port counterpart")
     sd: dict = {}
-    _resnet(sd, "encoder.model.", params["encoder"]["model"],
-            stats["encoder"]["model"])
+    enc, enc_stats = params["encoder"]["model"], stats["encoder"]["model"]
+    if "ConvBnAct_0" in enc:
+        _yolo_backbone(sd, "encoder.model.", enc, enc_stats)
+    else:
+        _resnet(sd, "encoder.model.", enc, enc_stats)
     for name in ("mlp_coarse", "mlp_fine"):
         if name in params:
             sd.update(resnetfc_state_dict(params[name], name + "."))

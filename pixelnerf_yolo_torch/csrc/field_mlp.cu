@@ -1,16 +1,23 @@
 // Fused pixelNeRF field MLP (ResnetFC) for Hopper (sm_90a), CUDA cores.
 //
-// Replaces the three Pallas TPU kernels of the JAX package's
-// pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py that carry the NeRF render:
+// Replaces the four Pallas TPU kernels of the JAX package's
+// pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:
 //   mode 0  full_pe          <- fused_full_pe        (_full_pe_kernel)
 //   mode 1  pre_combine_pe   <- fused_pre_combine_pe (_pre_combine_pe_kernel)
 //   mode 2  post_combine     <- fused_post_combine   (_post_combine_kernel)
+//   mode 3  pre_combine      <- fused_pre_combine    (_pre_combine_kernel)
 // It computes what they compute, with the same rounding points: every Dense
 // is an f32 accumulation plus an f32 bias, then one cast to the compute type
 // T (float or bf16); the residual stream x stays in T; lin_out takes the
 // T-typed w_out and writes f32.  The positional encoding is computed
 // directly as sin(f * x + phase) (the TPU kernel's base @ M + P matmul has
-// one non-zero per column, so both give the same f32 value).
+// one non-zero per column, so both give the same f32 value).  Mode 3 is
+// mode 1 without the PE stage: the caller hands it the z-features (the
+// PE of [xyz, viewdirs] when the model encodes viewdirs too, d_in 78 at the
+// flagship widths), already in T, and the block loads them into the buffer
+// the PE stage fills in mode 1.  Like modes 0-2 it is bound by operations
+// (2.4 M multiply-adds against ~2.2 KB of bf16 input and output per row at
+// d_in 78, H = dL = 512) and shares their CUDA-core FMA design.
 //
 // What bounds it: at the flagship widths (H = dL = 512, 5 blocks) a row
 // costs 3.43 M multiply-adds against ~1 KB of input and output, so the
@@ -60,7 +67,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 struct Params {
-  const float* base;    // (n, 6) f32: [xyz, viewdirs]
+  const float* base;    // (n, 6) f32: [xyz, viewdirs], PE modes only
+  const void* zfeat;    // (n, d_in) T, pre_combine only
   const void* latent;   // (n, d_latent) T
   const void* h_in;     // (n, hidden) T, post_combine only
   const void* w_in;     // (d_in, hidden) T
@@ -77,7 +85,7 @@ struct Params {
   const float* b1p;
   const void* w_out;    // (hidden, d_out) T
   const float* b_out;   // (d_out,)
-  void* out;            // (n, d_out) f32, or (n, hidden) T for pre_combine
+  void* out;            // (n, d_out) f32, or (n, hidden) T (modes 1, 3)
   int n_rows, d_in, d_latent, hidden, n_pre, n_post, d_out, num_freqs;
   float freq_factor;
 };
@@ -204,9 +212,23 @@ __device__ void positional_encoding(const float* __restrict__ base, int row0,
   }
 }
 
+// Z[r, col] = zfeat[row0 + r, col] for col < d_in; zero up to ldz and on
+// rows past n_rows.
+template <typename T>
+__device__ void load_zfeat(const T* __restrict__ zfeat, int row0, int n_rows,
+                           int d_in, int ldz, T* Z) {
+  for (int i = threadIdx.x; i < kRows * ldz; i += kThreads) {
+    const int r = i / ldz;
+    const int col = i - r * ldz;
+    Z[i] = row0 + r < n_rows && col < d_in
+               ? zfeat[(size_t)(row0 + r) * d_in + col]
+               : from_f<T>(0.f);
+  }
+}
+
 // Shared memory: X (kRows x hidden) the residual stream, A2 (kRows x
-// hidden) the relu'd fc_0 output (and the PE features before lin_in),
-// L (kRows x d_latent) the latent tile (modes 0 and 1), and the staged
+// hidden) the relu'd fc_0 output (and the z-features before lin_in),
+// L (kRows x d_latent) the latent tile (modes 0, 1 and 3), and the staged
 // weight tile (kBK x hidden).
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads) field_mlp_kernel(Params p) {
@@ -227,8 +249,13 @@ __global__ void __launch_bounds__(kThreads) field_mlp_kernel(Params p) {
       L[i] = row0 + r < n ? lat[(size_t)row0 * dL + i] : from_f<T>(0.f);
     }
     const int ldz = round_up(p.d_in, kBK);
-    positional_encoding<T>(p.base, row0, n, p.freq_factor, p.num_freqs,
-                           p.d_in, ldz, A2);
+    if (kMode == 3) {
+      load_zfeat<T>(static_cast<const T*>(p.zfeat), row0, n, p.d_in, ldz,
+                    A2);
+    } else {
+      positional_encoding<T>(p.base, row0, n, p.freq_factor, p.num_freqs,
+                             p.d_in, ldz, A2);
+    }
     __syncthreads();
     dense_hidden<T, false, kSet>(A2, ldz, p.d_in,
                                  static_cast<const T*>(p.w_in), p.b_in, H, X,
@@ -244,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) field_mlp_kernel(Params p) {
       dense_hidden<T, false, kAdd>(A2, H, H, w1 + (size_t)blk * H * H,
                                    p.b1 + blk * H, H, X, wtile);
     }
-    if (kMode == 1) {
+    if (kMode == 1 || kMode == 3) {
       T* h = static_cast<T*>(p.out);
       for (int i = threadIdx.x; i < kRows * H; i += kThreads) {
         if (row0 + i / H < n) h[(size_t)row0 * H + i] = X[i];
@@ -295,6 +322,7 @@ int dispatch_mode(int mode, const Params& p, cudaStream_t stream) {
     case 0: return launch<T, 0>(p, stream);
     case 1: return launch<T, 1>(p, stream);
     case 2: return launch<T, 2>(p, stream);
+    case 3: return launch<T, 3>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -314,8 +342,8 @@ const char* field_mlp_error_string(int code) {
 
 // Launches one kernel on `stream`; returns the CUDA error code (0 = ok).
 // Pointers a mode does not use may be null.
-int field_mlp_launch(int mode, int bf16, const void* base, const void* latent,
-                     const void* h_in, const void* w_in, const void* b_in,
+int field_mlp_launch(int mode, int bf16, const void* base, const void* zfeat,
+                     const void* latent, const void* h_in, const void* w_in, const void* b_in,
                      const void* wz, const void* bz, const void* w0,
                      const void* b0, const void* w1, const void* b1,
                      const void* w0p, const void* b0p, const void* w1p,
@@ -325,6 +353,7 @@ int field_mlp_launch(int mode, int bf16, const void* base, const void* latent,
                      int num_freqs, float freq_factor, void* stream) {
   Params p;
   p.base = static_cast<const float*>(base);
+  p.zfeat = zfeat;
   p.latent = latent;
   p.h_in = h_in;
   p.w_in = w_in;

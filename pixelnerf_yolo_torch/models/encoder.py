@@ -2,8 +2,8 @@
 
 Counterpart of ``SpatialEncoder``, ``latent_scaling_of``, ``index_latent``
 and ``make_encoder`` in pixelnerf_yolo_tpu/models/encoder.py, for the
-spatial ResNet path: backbone features at several scales, upsampled to the
-scale-0 size and concatenated into one latent map.
+spatial ResNet and custom ELAN (YOLO) paths: backbone features at several
+scales, upsampled to the scale-0 size and concatenated into one latent map.
 """
 
 from __future__ import annotations
@@ -15,9 +15,12 @@ from torch import nn
 from ..nn.resnet import STAGE_WIDTHS, ResNetFeatures
 from ..ops.grid_sample import grid_sample_nhwc
 from ..ops.resize import resize_bilinear
+from .yolo_backbone import YOLO_BACKBONE_LATENT, YOLOBackbone
 
 
-def spatial_latent_size(num_layers: int) -> int:
+def spatial_latent_size(backbone: str, num_layers: int) -> int:
+    if backbone == "custom":
+        return YOLO_BACKBONE_LATENT
     return int(np.cumsum([0] + STAGE_WIDTHS)[num_layers])
 
 
@@ -35,12 +38,15 @@ class SpatialEncoder(nn.Module):
         self.index_interp = index_interp
         self.index_padding = index_padding
         self.cdt = dtype
-        self.model = ResNetFeatures(backbone, num_layers, use_first_pool,
-                                    generator=generator)
+        if backbone == "custom":
+            self.model = YOLOBackbone(generator=generator)
+        else:
+            self.model = ResNetFeatures(backbone, num_layers, use_first_pool,
+                                        generator=generator)
 
     @property
     def latent_size(self) -> int:
-        return spatial_latent_size(self.num_layers)
+        return spatial_latent_size(self.backbone, self.num_layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x (B, H, W, 3) NHWC, values in [-1, 1]
@@ -90,6 +96,10 @@ def index_latent(latent_flat: torch.Tensor, latent_hw: tuple[int, int],
       [-1, 1] when image_size is None
     :param image_size (W, H) of the images the uv are expressed in
     :return (B, N, C)
+
+    Always the 4-corner gather: the JAX package's one-hot matmul form for
+    small bf16 tables on the YOLO path (``nan_scrub_ok``) is not ported
+    (ROADMAP.md Queue 1 item 19).
     """
     if image_size is not None:
         uv = uv * (latent_scaling_of(latent_hw, uv.device) / image_size) - 1.0
@@ -106,10 +116,13 @@ def make_encoder(conf, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None) -> SpatialEncoder:
     enc_type = conf.get_string("type", "spatial")
     if enc_type == "spatial":
-        if conf.get_string("backbone") not in ("resnet18", "resnet34"):
+        backbone = conf.get_string("backbone")
+        if backbone == "conv":
             raise NotImplementedError(
-                "only resnet18/34 encoders are ported (the YOLO backbone is "
-                "ROADMAP.md Queue 1 item 10)"
+                "the conv encoder (backbone = conv) is not ported yet "
+                "(ROADMAP.md Queue 1 item 21)"
             )
+        if backbone not in ("resnet18", "resnet34", "custom"):
+            raise NotImplementedError(f"backbone {backbone!r} is not ported")
         return SpatialEncoder.from_conf(conf, dtype=dtype, generator=generator)
     raise NotImplementedError(f"encoder type {enc_type!r} is not ported")

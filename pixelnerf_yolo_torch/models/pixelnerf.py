@@ -1,16 +1,20 @@
-"""PixelNeRF: image-conditioned radiance field, NeRF mode.
+"""PixelNeRF: image-conditioned radiance (NeRF) or detection (YOLO) field.
 
 Counterpart of pixelnerf_yolo_tpu/models/pixelnerf.py.  ``encode`` returns
 a :class:`CondState`; ``forward`` evaluates the field at world points from
-it.  NeRF-mode quirks kept from the reference:
-  * world->camera built as [R^T | -R^T t] from camera-to-world poses
-  * fy negated; uv = (-x/z, -y/z)
-  * rgb = sigmoid, sigma = relu
+it.  Mode quirks kept from the reference:
+  * NeRF: world->camera built as [R^T | -R^T t] from camera-to-world
+    poses; fy negated; uv = (-x/z, -y/z); rgb = sigmoid, sigma = relu
+  * YOLO: the poses are already world->camera extrinsics; focal kept;
+    uv = (+x/z, +y/z); latents zeroed where camera z >= 0, then where NaN;
+    the raw (SB, B, 7 x anchors) field output
 
 The field MLP runs through the fused kernels of ops/field_mlp.py when
-``model.use_fused_mlp`` is auto or true and the model is eligible
-(``_can_fuse`` and ``_pe_fusible``), and through the plain ResnetFC
-otherwise.  On CPU tensors the fused route runs the kernels' plain twins.
+``model.use_fused_mlp`` is auto or true and ``_can_fuse`` holds: with the
+positional encoding inside the kernel when ``_pe_fusible`` holds
+(``fused_pe_forward``), on precomputed z-features otherwise
+(``fused_forward``); through the plain ResnetFC when it does not.  On CPU
+tensors the fused routes run the kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -59,12 +63,14 @@ _UNPORTED = {
     "latent_int8": "model.latent_int8 (ROADMAP.md Queue 1 item 19)",
     "mlp_int8": "model.mlp_int8 (ROADMAP.md Queue 1 item 19)",
     "remat": "model.remat (ROADMAP.md Queue 1 item 17)",
-    "mlp_coarse.yolo": "YOLO mode (ROADMAP.md Queue 1 item 11)",
+    # the JAX package pre-projects by default in bf16 YOLO mode; the port
+    # never does, and refuses only a conf that asks for it by name
+    "latent_preproject": "model.latent_preproject (ROADMAP.md Queue 1 item 19)",
 }
 
 
 class PixelNeRF(nn.Module):
-    """Config-driven NeRF-mode model.
+    """Config-driven model, NeRF or YOLO mode (``mlp_coarse.yolo``).
 
     Usage:
       model = make_model(conf.get_config("model"), device="cuda")
@@ -111,7 +117,12 @@ class PixelNeRF(nn.Module):
                                  generator=generator)
         self.use_fused_mlp = conf.get("use_fused_mlp", "auto")
         self.d_in = d_in
-        self.d_out = conf.get_int("mlp_coarse.d_out", 4)
+        self.yolo = conf.get_bool("mlp_coarse.yolo", False)
+        if self.yolo and conf.get_int("mlp_coarse.num_scales", 1) > 1:
+            raise NotImplementedError(
+                "multi-scale YOLO (mlp_coarse.num_scales > 1) is not ported "
+                "yet (ROADMAP.md Queue 1 item 16)")
+        self.d_out = self.mlp_coarse.d_out
         self.d_latent = d_latent
 
     @property
@@ -125,7 +136,8 @@ class PixelNeRF(nn.Module):
         """Encode source views into a CondState.
 
         :param images (NS, 3, H, W) or (SB, NS, 3, H, W), values in [-1, 1]
-        :param poses (NS, 4, 4) or (SB, NS, 4, 4) camera-to-world
+        :param poses (NS, 4, 4) or (SB, NS, 4, 4): camera-to-world in NeRF
+          mode, world-to-camera extrinsics in YOLO mode
         :param focal () or (2,) or (SB, 2)
         :param c None or (2,) or (SB, 2)
         """
@@ -144,9 +156,12 @@ class PixelNeRF(nn.Module):
         B, Hl, Wl, C = latent.shape
         latent_flat = latent.reshape(B, Hl * Wl, C).to(self.compute_dtype)
 
-        rot = poses[:, :3, :3].transpose(1, 2)  # R^T
-        trans = -torch.einsum("bij,bj->bi", rot, poses[:, :3, 3])
-        w2c = torch.cat([rot, trans[..., None]], dim=-1)
+        if self.yolo:
+            w2c = poses[:, :3, :4]
+        else:
+            rot = poses[:, :3, :3].transpose(1, 2)  # R^T
+            trans = -torch.einsum("bij,bj->bi", rot, poses[:, :3, 3])
+            w2c = torch.cat([rot, trans[..., None]], dim=-1)
 
         image_size = torch.tensor([images.shape[-1], images.shape[-2]],
                                   dtype=f32, device=dev)
@@ -155,7 +170,8 @@ class PixelNeRF(nn.Module):
             focal = focal[None, None].expand(1, 2)
         elif focal.ndim == 1:
             focal = focal[:, None].expand(focal.shape[0], 2)
-        focal = focal * torch.tensor([1.0, -1.0], dtype=f32, device=dev)
+        if not self.yolo:
+            focal = focal * torch.tensor([1.0, -1.0], dtype=f32, device=dev)
 
         if c is None:
             c = (image_size * 0.5)[None]
@@ -174,10 +190,10 @@ class PixelNeRF(nn.Module):
 
     # -- the field -----------------------------------------------------------
 
-    def _can_fuse(self, mlp, ns: int) -> bool:
+    def _can_fuse(self, mlp, ns: int, mode: str = "full_pe") -> bool:
         """Whether the fused kernels apply: the conditions of the JAX
-        package's ``_can_fuse``, with the kernels' own width check in place
-        of the TPU's VMEM budget."""
+        package's ``_can_fuse``, with the width check of the kernel that
+        starts the route (``mode``) in place of the TPU's VMEM budget."""
         enabled = self.use_fused_mlp
         if isinstance(enabled, str):
             enabled = enabled.lower() in ("auto", "true", "1", "yes", "on")
@@ -190,7 +206,7 @@ class PixelNeRF(nn.Module):
             and self.d_in > 0
             and (ns == 1 or mlp.combine_layer < mlp.n_blocks)
             and field_mlp.fits(self.d_in, mlp.d_latent, mlp.d_hidden,
-                               self.compute_dtype)
+                               self.compute_dtype, mode)
         )
 
     def _pe_fusible(self) -> bool:
@@ -218,22 +234,31 @@ class PixelNeRF(nn.Module):
         sample the pixel-aligned latent.
 
         :param xyz (SB, B, 3) world points
-        :return (SB*NS, B, C) latents
+        :return (SB*NS, B, C) latents (YOLO: zeroed behind z = 0 and NaN)
         """
         NS = cond.num_views_per_obj
         _, xyz_cam = self._to_camera(cond, xyz)
-        uv = -xyz_cam[:, :, :2] / xyz_cam[:, :, 2:]
+        if self.yolo:
+            uv = xyz_cam[:, :, :2] / xyz_cam[:, :, 2:]
+        else:
+            uv = -xyz_cam[:, :, :2] / xyz_cam[:, :, 2:]
         focal, cc = cond.focal, cond.c
         if focal.shape[0] > 1:
             focal = repeat_interleave(focal, NS)
         if cc.shape[0] > 1:
             cc = repeat_interleave(cc, NS)
         uv = uv * focal[:, None, :] + cc[:, None, :]
-        return index_latent(
+        latent = index_latent(
             cond.latent_flat, cond.latent_hw, uv, cond.image_size,
             index_interp=self.encoder.index_interp,
             index_padding=self.encoder.index_padding,
         )
+        if self.yolo:
+            zero = torch.zeros((), dtype=latent.dtype, device=latent.device)
+            latent = torch.where((xyz_cam[:, :, 2] >= 0)[..., None], zero,
+                                 latent)
+            latent = torch.where(torch.isnan(latent), zero, latent)
+        return latent
 
     @torch.no_grad()
     def forward(self, cond: CondState, xyz: torch.Tensor, coarse: bool = True,
@@ -243,7 +268,7 @@ class PixelNeRF(nn.Module):
 
         :param xyz (SB, B, 3); viewdirs (SB, B, 3) if use_viewdirs
         :param latent optional project_latent(cond, xyz) result
-        :return (SB, B, 4) = [sigmoid rgb, relu sigma]
+        :return (SB, B, d_out): NeRF [sigmoid rgb, relu sigma]; YOLO raw
         """
         return self._forward_impl(cond, xyz, coarse=coarse,
                                   viewdirs=viewdirs, latent=latent)
@@ -254,7 +279,10 @@ class PixelNeRF(nn.Module):
         NS = cond.num_views_per_obj
         use_fine = not coarse and self.mlp_fine is not None
         mlp = self.mlp_fine if use_fine else self.mlp_coarse
-        fuse_pe = self._can_fuse(mlp, NS) and self._pe_fusible()
+        pe_fusible = self._pe_fusible()
+        fuse = self._can_fuse(mlp, NS,
+                              "full_pe" if pe_fusible else "pre_combine")
+        fuse_pe = fuse and pe_fusible
 
         xyz_rot, xyz_cam = self._to_camera(cond, xyz)
         vd = None
@@ -288,10 +316,18 @@ class PixelNeRF(nn.Module):
                 z_feature = torch.cat([z_feature, vd], dim=1)
             if self.use_code and self.use_code_viewdirs:
                 z_feature = self.code(z_feature)
-            # concatenated in f32, cast to the compute dtype by the MLP
-            mlp_input = torch.cat([latent.float(), z_feature.float()], dim=-1)
-            out = mlp(mlp_input, combine_inner_dims=(NS, B))
+            if fuse:
+                out = field_mlp.fused_forward(
+                    mlp, latent, z_feature, NS, B, self.compute_dtype
+                )
+            else:
+                # concatenated in f32, cast to the compute dtype by the MLP
+                mlp_input = torch.cat([latent.float(), z_feature.float()],
+                                      dim=-1)
+                out = mlp(mlp_input, combine_inner_dims=(NS, B))
         out = out.reshape(-1, B, self.d_out)
+        if self.yolo:
+            return out
         rgb = torch.sigmoid(out[..., :3])
         sigma = torch.relu(out[..., 3:4])
         return torch.cat([rgb, sigma], dim=-1).reshape(SB, B, -1)

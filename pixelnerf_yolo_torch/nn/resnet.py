@@ -27,7 +27,7 @@ def conv(x: torch.Tensor, m: nn.Conv2d, cdt: torch.dtype) -> torch.Tensor:
 
 
 def batch_norm(x: torch.Tensor, m: nn.BatchNorm2d, cdt: torch.dtype):
-    mul = torch.rsqrt(m.running_var + BN_EPS) * m.weight
+    mul = torch.rsqrt(m.running_var + m.eps) * m.weight
     y = (x.float() - m.running_mean[:, None, None]) * mul[:, None, None]
     return (y + m.bias[:, None, None]).to(cdt)
 

@@ -141,9 +141,14 @@ class ResnetFC(nn.Module):
 
     @classmethod
     def from_conf(cls, conf, d_in: int, d_latent: int = 0, **kwargs):
+        """A YOLO head (``yolo = True``) emits d_out values per anchor."""
+        d_out = conf.get_int("d_out", 4)
+        if conf.get_bool("yolo", False):
+            d_out = conf.get_int("d_out", 7) * conf.get_int(
+                "num_anchors_per_scale", 3)
         return cls(
             d_in,
-            d_out=conf.get_int("d_out", 4),
+            d_out=d_out,
             n_blocks=conf.get_int("n_blocks", 5),
             d_latent=d_latent,
             d_hidden=conf.get_int("d_hidden", 128),

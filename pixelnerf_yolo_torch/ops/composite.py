@@ -1,6 +1,7 @@
-"""Alpha compositing (volume rendering quadrature).
+"""Alpha compositing (NeRF) and probability-weighted aggregation (YOLO).
 
-Counterpart of ``composite`` in pixelnerf_yolo_tpu/ops/composite.py:
+Counterpart of ``composite`` and ``yolo_aggregate`` in
+pixelnerf_yolo_tpu/ops/composite.py.  ``composite``:
   deltas_k = z_{k+1} - z_k,  delta_K = far - z_K
   alpha_k  = 1 - exp(-delta_k * relu(sigma_k))
   T_k      = prod_{j<k} (1 - alpha_j + 1e-10)
@@ -39,3 +40,35 @@ def composite(rgb_sigma: torch.Tensor, z_samp: torch.Tensor,
     if white_bkgd:
         rgb_final = rgb_final + (1.0 - torch.sum(weights, dim=-1))[..., None]
     return weights, rgb_final, depth_final
+
+
+def yolo_aggregate(out: torch.Tensor, mode: str = "max",
+                   soft_count: float = 4.0, gamma: float = 1.0) -> torch.Tensor:
+    """Reduce the field's YOLO outputs over the K samples of each ray.
+
+      p_k    = sigmoid(out[..., 0])
+      values = sum_k out[..., 1:] p_k / (sum_k p_k + 1e-5)
+      prob   = max_k p_k                       (mode "max", the reference)
+             = S / (S + soft_count)            (mode "soft_count")
+             = max_k p_k * S / (S + soft_count) (mode "gated_count")
+    with the objectness mass S = sum_k p_k^gamma.
+
+    :param out (B, K, A, 7) raw field outputs (A anchors)
+    :return (B, A, 7) = [prob, weighted values (6)]
+    """
+    probs = torch.sigmoid(out[..., 0])  # (B, K, A)
+    summed = torch.sum(probs, dim=1)  # (B, A)
+    vals = torch.sum(out[..., 1:] * probs[..., None], dim=1)
+    vals = vals / (summed[..., None] + 1e-5)
+    if mode == "max":
+        prob = torch.amax(probs, dim=1)
+    else:
+        mass = summed if gamma == 1.0 else torch.sum(probs**gamma, dim=1)
+        squash = mass / (mass + soft_count)
+        if mode == "soft_count":
+            prob = squash
+        elif mode == "gated_count":
+            prob = torch.amax(probs, dim=1) * squash
+        else:
+            raise NotImplementedError(f"Unsupported yolo aggregation {mode!r}")
+    return torch.cat([prob[..., None], vals], dim=-1)

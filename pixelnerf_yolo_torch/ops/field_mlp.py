@@ -1,12 +1,17 @@
 """Fused field MLP: hand-written Hopper kernels and their plain twins.
 
-Counterpart of pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py.  Three kernels
-(csrc/field_mlp.cu, CUDA C++ for sm_90a) replace the three Pallas kernels
-on the NeRF render path:
+Counterpart of pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py.  Four kernels
+(csrc/field_mlp.cu, CUDA C++ for sm_90a) replace its four Pallas kernels:
 
   full_pe         <- fused_full_pe         whole ResnetFC, NS == 1
   pre_combine_pe  <- fused_pre_combine_pe  PE + lin_in + pre-combine blocks
   post_combine    <- fused_post_combine    post-combine blocks + lin_out
+  pre_combine     <- fused_pre_combine     lin_in on given z-features +
+                                           pre-combine blocks
+
+The first three carry models whose positional encoding fits in the kernel
+(``fused_pe_forward``); the last carries the others (``fused_forward``,
+e.g. ``use_code_viewdirs = True``), followed by ``post_combine``.
 
 Each wrapper runs its plain twin (``*_plain``: the same function with the
 same rounding points, in plain torch) when its tensors lie on the CPU,
@@ -49,7 +54,8 @@ COLUMN_LANES = 64
 MAX_HIDDEN = 512
 SMEM_LIMIT = 232448
 
-MODES = {"full_pe": 0, "pre_combine_pe": 1, "post_combine": 2}
+MODES = {"full_pe": 0, "pre_combine_pe": 1, "post_combine": 2,
+         "pre_combine": 3}
 launches = {name: 0 for name in MODES}
 
 
@@ -146,9 +152,9 @@ def pe_features(base: torch.Tensor, code: PositionalEncoding) -> torch.Tensor:
     return torch.cat([code(base[:, :3]), base[:, 3:]], dim=-1)
 
 
-def _pre(base, latent, w: StackedWeights, code):
+def _pre(zfeat, latent, w: StackedWeights):
     cdt = latent.dtype
-    x = _dense(pe_features(base, code).to(cdt), w.w_in, w.b_in, cdt)
+    x = _dense(zfeat.to(cdt), w.w_in, w.b_in, cdt)
     for i in range(w.wz.shape[0]):
         x = x + _dense(latent, w.wz[i], w.bz[i], cdt)
         net = _dense(torch.relu(x), w.w0[i], w.b0[i], cdt)
@@ -165,11 +171,15 @@ def _post(x, w: StackedWeights):
 
 
 def full_pe_plain(base, latent, w: StackedWeights, code) -> torch.Tensor:
-    return _post(_pre(base, latent, w, code), w)
+    return _post(pre_combine_pe_plain(base, latent, w, code), w)
 
 
 def pre_combine_pe_plain(base, latent, w: StackedWeights, code) -> torch.Tensor:
-    return _pre(base, latent, w, code)
+    return _pre(pe_features(base, code), latent, w)
+
+
+def pre_combine_plain(zfeat, latent, w: StackedWeights) -> torch.Tensor:
+    return _pre(zfeat, latent, w)
 
 
 def post_combine_plain(h, w: StackedWeights) -> torch.Tensor:
@@ -189,8 +199,9 @@ def fits(d_in: int, d_latent: int, hidden: int, compute_dtype,
          mode: str = "full_pe") -> bool:
     """Whether the kernel of ``mode`` takes these widths: hidden a multiple
     of 64 up to 512 and the block's tiles within the shared-memory limit;
-    with the PE stage also the PE features no wider than hidden and
-    d_latent a multiple of the weight tile."""
+    before the combine (every mode but post_combine) also the z-features,
+    rounded up to the weight tile, no wider than hidden and d_latent a
+    multiple of the weight tile."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return False
     elt = torch.empty((), dtype=compute_dtype).element_size()
@@ -255,7 +266,7 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.field_mlp_launch.argtypes = (
-            [ci, ci] + [vp] * 18 + [ci] * 8 + [ctypes.c_float, vp]
+            [ci, ci] + [vp] * 19 + [ci] * 8 + [ctypes.c_float, vp]
         )
         lib.field_mlp_launch.restype = ci
         lib.field_mlp_error_string.argtypes = [ci]
@@ -306,7 +317,8 @@ def _check_weights(w: StackedWeights, cdt, device, d_in, d_latent, pre: bool,
 
 
 def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
-            latent=None, h=None, out=None, num_freqs=0, freq_factor=0.0):
+            zfeat=None, latent=None, h=None, out=None, num_freqs=0,
+            freq_factor=0.0):
     if device.type != "cuda":
         raise ValueError(f"field MLP kernels run on CUDA tensors, got {device}")
     if not fits(d_in, d_latent, w.hidden, cdt, mode):
@@ -320,12 +332,12 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
         return None if t is None else t.data_ptr()
 
     n_pre = w.wz.shape[0] if mode != "post_combine" else 0
-    n_post = w.w0p.shape[0] if mode != "pre_combine_pe" else 0
+    n_post = w.w0p.shape[0] if mode in ("full_pe", "post_combine") else 0
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = lib.field_mlp_launch(
-            MODES[mode], int(cdt == torch.bfloat16), ptr(base), ptr(latent),
-            ptr(h), *(ptr(getattr(w, f.name)) for f in dataclasses.fields(w)),
+            MODES[mode], int(cdt == torch.bfloat16), ptr(base), ptr(zfeat),
+            ptr(latent), ptr(h), *(ptr(getattr(w, f.name)) for f in dataclasses.fields(w)),
             ptr(out),
             n_rows, d_in, d_latent, w.hidden, n_pre, n_post,
             w.w_out.shape[1], num_freqs, float(freq_factor), stream,
@@ -374,6 +386,22 @@ def pre_combine_pe(base, latent, w: StackedWeights, code) -> torch.Tensor:
                    num_freqs=code.num_freqs, freq_factor=code.freq_factor)
 
 
+def pre_combine(zfeat, latent, w: StackedWeights) -> torch.Tensor:
+    """(N, d_in) cdt, (N, dL) cdt -> h (N, H) cdt: lin_in on the given
+    z-features, CL blocks."""
+    if latent.device.type == "cpu":
+        return pre_combine_plain(zfeat, latent, w)
+    n, dL = latent.shape
+    cdt, dev = latent.dtype, latent.device
+    d_in = w.w_in.shape[0]
+    _check(zfeat, "zfeat", (n, d_in), cdt, dev)
+    _check(latent, "latent", (n, dL), cdt, dev)
+    _check_weights(w, cdt, dev, d_in, dL, pre=True, post=False)
+    out = torch.empty((n, w.hidden), dtype=cdt, device=dev)
+    return _launch("pre_combine", cdt, dev, n, d_in, dL, w, zfeat=zfeat,
+                   latent=latent, out=out)
+
+
 def post_combine(h, w: StackedWeights) -> torch.Tensor:
     """(N, H) cdt -> (N, d_out) f32: post-combine blocks and lin_out."""
     if h.device.type == "cpu":
@@ -404,8 +432,30 @@ def fused_pe_forward(mlp, latent, base, ns: int, inner_b: int,
         return full_pe(base, latent, w, code)
     # NS > 1, or NS == 1 with no post-combine block (post_combine then
     # runs lin_out alone)
-    h = pre_combine_pe(base, latent, w, code)
+    return _combine_post(pre_combine_pe(base, latent, w, code), w, ns,
+                         inner_b)
+
+
+def _combine_post(h, w: StackedWeights, ns: int, inner_b: int):
+    """The f32 view mean (NS > 1), then the post_combine kernel."""
+    cdt = h.dtype
     if ns > 1:
         H = h.shape[-1]
         h = h.reshape(-1, ns, inner_b, H).float().mean(dim=1).reshape(-1, H)
-    return post_combine(h.to(compute_dtype).contiguous(), w)
+    return post_combine(h.to(cdt).contiguous(), w)
+
+
+def fused_forward(mlp, latent, zfeat, ns: int, inner_b: int,
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """The fused field on precomputed z-features (``_fused_forward``):
+    pre_combine, the view mean when NS > 1, post_combine, even at NS == 1
+    (there is no whole-MLP kernel without the PE stage).
+
+    :param latent (SB*NS*B, dL), rows ordered (sb, v, b)
+    :param zfeat (SB*NS*B, d_in), cast to the compute dtype here
+    :return (SB*B, d_out) f32
+    """
+    w = stacked_params(mlp, compute_dtype)
+    h = pre_combine(zfeat.to(compute_dtype).contiguous(),
+                    latent.to(compute_dtype).contiguous(), w)
+    return _combine_post(h, w, ns, inner_b)

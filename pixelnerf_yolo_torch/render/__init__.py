@@ -1,9 +1,10 @@
-"""Rendering layer: the NeRF volume renderer."""
+"""Rendering layer: the NeRF volume renderer and the YOLO ray renderer."""
 
 from .nerf import NeRFRenderer
+from .yolo import YoloRenderer
 
 
-def make_renderer(conf, lindisp: bool = False, device="cuda") -> NeRFRenderer:
+def make_renderer(conf, lindisp: bool = False, device="cuda"):
     """Renderer from the root config; it renders on ``device`` (the card
     unless the caller asks for the CPU)."""
     renderer_type = conf.get_string("renderer.type", "nerf")
@@ -11,10 +12,8 @@ def make_renderer(conf, lindisp: bool = False, device="cuda") -> NeRFRenderer:
         return NeRFRenderer.from_conf(conf.get_config("renderer"),
                                       lindisp=lindisp, device=device)
     if renderer_type == "yolo":
-        raise NotImplementedError(
-            "the YOLO renderer is not ported yet (ROADMAP.md Queue 1 item 12)"
-        )
+        return YoloRenderer.from_conf(conf, device=device)
     raise NotImplementedError("Unsupported renderer type")
 
 
-__all__ = ["NeRFRenderer", "make_renderer"]
+__all__ = ["NeRFRenderer", "YoloRenderer", "make_renderer"]

@@ -1,8 +1,9 @@
-"""Camera ray generation for NeRF mode.
+"""Camera ray generation.
 
-Counterpart of ``gen_rays``, ``unproj_map`` and ``_expand_focal`` in
-pixelnerf_yolo_tpu/utils/camera.py (OpenGL-style camera: x right, y up,
-z backward).
+Counterpart of ``gen_rays``, ``unproj_map``, ``_expand_focal`` and
+``gen_rays_yolo`` in pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
+OpenGL-style camera (x right, y up, z backward) and camera-to-world poses.
+YOLO mode: world-to-camera extrinsics and a pinhole K (z forward).
 """
 
 from __future__ import annotations
@@ -59,3 +60,41 @@ def gen_rays(poses, width: int, height: int, focal, z_near, z_far, c=None,
     fars = torch.full((n, height, width, 1), float(z_far),
                       dtype=torch.float32, device=device)
     return torch.cat([centers, raydirs, nears, fars], dim=-1)
+
+
+def gen_rays_yolo(poses, width: int, height: int, focal, c, z_near,
+                  z_far) -> torch.Tensor:
+    """Camera rays for YOLO mode, with the reference's quirks:
+      * pixel centres at +0.49 (not +0.5);
+      * directions K^-1 [u, v, 1] rotated by the inverse extrinsic, NOT
+        normalized;
+      * origins from the inverse extrinsic's translation.
+    K and the extrinsics are inverted with f32 ``torch.linalg.inv``.
+
+    :param poses (B, 4, 4) world-to-camera extrinsics; the rays live on
+      its device
+    :param focal, c scalars or (fx, fy), (cx, cy)
+    :return (B, H, W, 8) = [origin(3), dir(3), near(1), far(1)]
+    """
+    f32 = torch.float32
+    poses = torch.as_tensor(poses, dtype=f32)
+    device = poses.device
+    n = poses.shape[0]
+    focal = torch.as_tensor(focal, dtype=f32, device=device).reshape(-1)
+    c = torch.as_tensor(c, dtype=f32, device=device).reshape(-1)
+    K = torch.eye(3, dtype=f32, device=device)
+    K[0, 0], K[1, 1] = focal[0], focal[-1]
+    K[0, 2], K[1, 2] = c[0], c[-1]
+    gx = torch.arange(width, dtype=f32, device=device) + 0.49
+    gy = torch.arange(height, dtype=f32, device=device) + 0.49
+    Y, X = torch.meshgrid(gy, gx, indexing="ij")  # (H, W)
+    pix = torch.stack([X, Y, torch.ones_like(X)], dim=-1)
+    dirs_cam = torch.einsum("ij,hwj->hwi", torch.linalg.inv(K), pix)
+    inv_ext = torch.linalg.inv(poses)
+    dirs = torch.einsum("bij,hwj->bhwi", inv_ext[:, :3, :3], dirs_cam)
+    origins = inv_ext[:, None, None, :3, 3].expand(n, height, width, 3)
+    nears = torch.full((n, height, width, 1), float(z_near), dtype=f32,
+                       device=device)
+    fars = torch.full((n, height, width, 1), float(z_far), dtype=f32,
+                      device=device)
+    return torch.cat([origins, dirs, nears, fars], dim=-1)

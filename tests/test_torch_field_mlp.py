@@ -29,19 +29,19 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 TOL = {"float32": 2e-5, "bfloat16": 6e-2}
 
 
-def _mlps(dtype, seed=0, beta=0.0, cl=CL):
+def _mlps(dtype, seed=0, beta=0.0, cl=CL, d_in=D_IN):
     jd, td = DTYPES[dtype]
     jmlp = JResnetFC(d_out=4, n_blocks=NB, d_latent=D_LAT, d_hidden=H,
                      combine_layer=cl, combine_type="average", dtype=dtype,
                      beta=beta)
     params = jmlp.init(jax.random.PRNGKey(seed),
-                       jnp.zeros((2, D_LAT + D_IN)))["params"]
+                       jnp.zeros((2, D_LAT + d_in)))["params"]
     # fc_1 is zero-init; give every weight signal
     params = jax.tree.map(
         lambda x: np.asarray(
             x + 0.05 * jax.random.normal(jax.random.PRNGKey(9), x.shape)),
         params)
-    tmlp = ResnetFC(D_IN, d_out=4, n_blocks=NB, d_latent=D_LAT, d_hidden=H,
+    tmlp = ResnetFC(d_in, d_out=4, n_blocks=NB, d_latent=D_LAT, d_hidden=H,
                     combine_layer=cl, dtype=td, beta=beta)
     tmlp.load_state_dict(resnetfc_state_dict(params), strict=True)
     return jmlp, params, tmlp
@@ -143,6 +143,52 @@ def test_fused_pe_forward_matches_jax(rng, dtype, ns):
     np.testing.assert_allclose(got, ref, atol=TOL[dtype])
 
 
+# z-features of a model that encodes viewdirs too (use_code_viewdirs):
+# PE over [xyz, viewdirs], 6 + 6 * 2 * 6 = 78 columns
+D_ZF = 78
+
+
+def _zfeat(rng, rows):
+    return rng.normal(size=(rows, D_ZF)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pre_combine_twin_matches_pallas(rng, dtype):
+    """The twin of the pre_combine kernel against ``fused_pre_combine``
+    (the f32 z-features are cast to the compute dtype on both sides)."""
+    jd, td = DTYPES[dtype]
+    _, params, tmlp = _mlps(dtype, d_in=D_ZF)
+    js, ts = _stacked(params, tmlp, dtype)
+    latent, zf = _inputs(rng, 200)[0], _zfeat(rng, 200)
+    ref = np.asarray(jfm.fused_pre_combine(
+        jnp.asarray(zf), jnp.asarray(latent, jd), *js[:8],
+        tile=128).astype(jnp.float32))
+    got = field_mlp.pre_combine(torch.from_numpy(zf).to(td),
+                                torch.from_numpy(latent).to(td), ts)
+    assert got.dtype == td and got.shape == (200, H)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_fused_forward_matches_jax(rng, dtype, ns):
+    """pre_combine, the f32 view mean (NS > 1) and post_combine, also at
+    NS=1, against the JAX package's ``fused_resnetfc``."""
+    jd, td = DTYPES[dtype]
+    _, params, tmlp = _mlps(dtype, d_in=D_ZF)
+    B = 40
+    latent, zf = _inputs(rng, 2 * ns * B)[0], _zfeat(rng, 2 * ns * B)
+    ref = np.asarray(jfm.fused_resnetfc(
+        params, jnp.asarray(latent), jnp.asarray(zf), NB, CL, ns, B, jd,
+        None))
+    field_mlp.reset_launches()
+    got = field_mlp.fused_forward(tmlp, torch.from_numpy(latent),
+                                  torch.from_numpy(zf), ns, B, td).numpy()
+    assert got.shape == (2 * B, 4)
+    np.testing.assert_allclose(got, ref, atol=TOL[dtype])
+    assert sum(field_mlp.launches.values()) == 0
+
+
 def test_fused_pe_forward_without_post_blocks(rng):
     """NS=1 with combine_layer == n_blocks: pre_combine_pe, then
     post_combine with no block (lin_out alone).  The JAX package's
@@ -205,6 +251,17 @@ def test_fits_and_smem_budget():
     assert not field_mlp.fits(42, 512, 1024, torch.bfloat16)
     assert not field_mlp.fits(42, 512, 512, torch.float16)
     assert field_mlp.fits(0, 0, 512, torch.float32, mode="post_combine")
+    # pre_combine: the z-features rounded up to the 16-row weight tile fit
+    # in the hidden width (80 <= 512 at the use_code_viewdirs flagship)
+    for dt in (torch.float32, torch.bfloat16):
+        assert field_mlp.fits(78, 512, 512, dt, mode="pre_combine")
+    assert not field_mlp.fits(520, 512, 512, torch.bfloat16,
+                              mode="pre_combine")
+    # the YOLO widths: a 32 x 1792 latent tile fits in bf16 (196,608 B)
+    # and not in f32 (393,216 B)
+    assert field_mlp.smem_bytes("pre_combine_pe", 2, 512, 1792) == 196608
+    assert field_mlp.fits(42, 1792, 512, torch.bfloat16, "pre_combine_pe")
+    assert not field_mlp.fits(42, 1792, 512, torch.float32, "pre_combine_pe")
 
 
 def test_wrappers_refuse_other_devices():

@@ -23,9 +23,9 @@ KINDS = ("full_pe", "pre_combine_pe", "post_combine")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _mlp(hidden, d_latent, dtype, seed=0, combine_layer=3):
+def _mlp(hidden, d_latent, dtype, seed=0, combine_layer=3, d_in=42, d_out=4):
     g = torch.Generator().manual_seed(seed)
-    mlp = ResnetFC(42, d_out=4, n_blocks=5, d_latent=d_latent,
+    mlp = ResnetFC(d_in, d_out=d_out, n_blocks=5, d_latent=d_latent,
                    d_hidden=hidden, combine_layer=combine_layer, dtype=dtype,
                    generator=g)
     with torch.no_grad():
@@ -120,9 +120,71 @@ def test_route_without_post_blocks(cuda_device, dtype):
                                                             code), w)
     torch.cuda.synchronize()
     assert fm.launches == {"full_pe": 0, "pre_combine_pe": 1,
-                           "post_combine": 1}
+                           "post_combine": 1, "pre_combine": 0}
     scale = max(1.0, ref.abs().max().item())
     assert (got - ref).abs().max().item() <= TOL[dtype] * scale
+
+
+def _zfeat(rows, d_in, dtype, device, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((rows, d_in), generator=g).to(dtype).to(device)
+
+
+def test_pre_combine_cpu_tensors_take_the_twin():
+    w = fm.stack_params(_mlp(128, 64, torch.float32, d_in=78), torch.float32)
+    zf = _zfeat(33, 78, torch.float32, "cpu")
+    _, lat = _inputs(33, 64, torch.float32, "cpu")
+    fm.reset_launches()
+    got = fm.pre_combine(zf, lat, w)
+    assert torch.equal(got, fm.pre_combine_plain(zf, lat, w))
+    assert sum(fm.launches.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,d_in,rows", [(512, 78, 1037), (128, 78, 100),
+                                              (64, 6, 5)])
+def test_pre_combine_kernel_matches_twin(cuda_device, dtype, hidden, d_in,
+                                         rows):
+    """Mode 3: lin_in on given z-features (the use_code_viewdirs width 78,
+    and 6), then the pre-combine blocks."""
+    w = fm.stack_params(_mlp(hidden, 512, dtype, d_in=d_in).to(cuda_device),
+                        dtype)
+    zf = _zfeat(rows, d_in, dtype, cuda_device)
+    _, lat = _inputs(rows, 512, dtype, cuda_device)
+    fm.reset_launches()
+    with torch.no_grad():
+        got = fm.pre_combine(zf, lat, w)
+        ref = fm.pre_combine_plain(zf, lat, w)
+    torch.cuda.synchronize()
+    assert fm.launches["pre_combine"] == 1
+    assert got.dtype == ref.dtype == dtype and got.shape == (rows, hidden)
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pre_combine_pe", "post_combine"])
+def test_yolo_widths_match_twin(cuda_device, kind):
+    """Modes 1 and 2 at the YOLO widths, bf16: a 1792-d latent (the
+    32 x 1792 latent tile takes 114,688 B of shared memory) and lin_out
+    with 21 columns (7 x 3 anchors)."""
+    dtype = torch.bfloat16
+    code = PositionalEncoding(6, 3, 1.5, True).to(cuda_device)
+    w = fm.stack_params(_mlp(512, 1792, dtype, d_out=21).to(cuda_device),
+                        dtype)
+    base, lat = _inputs(1037, 1792, dtype, cuda_device)
+    fm.reset_launches()
+    with torch.no_grad():
+        got = _run(kind, w, base, lat, code, kernel=True)
+        ref = _run(kind, w, base, lat, code, kernel=False)
+    torch.cuda.synchronize()
+    assert fm.launches[kind] == 1
+    assert got.shape == ref.shape
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
 
 
 @pytest.mark.cuda
@@ -137,3 +199,5 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         fm.full_pe(base, lat.t().contiguous().t(), w, code)
     with pytest.raises(ValueError, match="shape"):
         fm.full_pe(base[:8], lat, w, code)
+    with pytest.raises(ValueError, match="zfeat"):
+        fm.pre_combine(base, lat, w)  # 6 columns, w_in takes 42

@@ -98,6 +98,46 @@ def test_encode_and_forward_match(jax_side, rng, fused, ns):
     assert sum(field_mlp.launches.values()) == 0
 
 
+@pytest.fixture(scope="module")
+def viewdirs_side():
+    """The flagship with ``use_code_viewdirs = True`` (the PE covers the
+    viewdirs: 78 z-features, outside the kernel), at d_hidden 128: the
+    pre_combine kernel keeps the z-features, rounded up to 80 columns, in
+    a buffer as wide as the hidden layer."""
+    conf = small_flagship(use_code_viewdirs=True, d_hidden=128)
+    jm = jmake_model(conf.get_config("model"))
+    images, _, _ = scene(ns=2)
+    return jm, perturbed_variables(jm, images[0])
+
+
+@pytest.mark.parametrize("fused", ["true", "false"])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_code_viewdirs_forward_matches(viewdirs_side, rng, fused, ns):
+    """Fused: the JAX package's ``fused_resnetfc`` (Pallas, interpret mode)
+    against the port's ``fused_forward`` (the pre_combine and post_combine
+    twins on the CPU); plain: flax against the port's ResnetFC."""
+    jm, v = viewdirs_side
+    conf = small_flagship(use_fused_mlp=fused, use_code_viewdirs=True,
+                          d_hidden=128)
+    tm = port_model(conf, v)
+    assert tm.d_in == 78 and not tm._pe_fusible()
+    assert tm._can_fuse(tm.mlp_coarse, ns, "pre_combine") is (fused == "true")
+    jm = jmake_model(conf.get_config("model"))
+    images, poses, focal = scene(ns=ns)
+    jc = jm.encode(v, jnp.asarray(images), jnp.asarray(poses),
+                   jnp.asarray(focal))
+    tc = tm.encode(images, poses, focal)
+    xyz = (rng.normal(size=(1, 50, 3)) * 0.3).astype(np.float32)
+    vd = rng.normal(size=(1, 50, 3)).astype(np.float32)
+    for coarse in (True, False):
+        ref = np.asarray(jm.forward(v, jc, jnp.asarray(xyz), coarse=coarse,
+                                    viewdirs=jnp.asarray(vd)))
+        got = to_np(tm.forward(tc, torch.from_numpy(xyz), coarse=coarse,
+                               viewdirs=torch.from_numpy(vd)))
+        assert got.shape == ref.shape == (1, 50, 4)
+        np.testing.assert_allclose(got, ref, atol=FWD_TOL)
+
+
 def test_superbatch_forward_matches(jax_side, rng):
     """Two scenes of two views each, per-scene focal and principal point:
     rows are ordered (scene, view, point) on both sides."""
@@ -229,10 +269,12 @@ def test_sched_step_matches_jax():
 
 
 def test_unported_options_raise():
+    from pixelnerf_yolo_torch.models import make_model
+
     conf = small_flagship()
-    conf.put("renderer.type", "yolo")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        make_renderer(conf, device="cpu")
+    conf.put("model.remat", True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+        make_model(conf.get_config("model"), device="cpu")
     conf = small_flagship()
     conf.put("renderer.early_terminate", 0.5)
     with pytest.raises(NotImplementedError, match="early_terminate"):

@@ -222,6 +222,9 @@ def test_port_imports_no_jax():
         import pixelnerf_yolo_torch.render
         import pixelnerf_yolo_torch.ops.field_mlp
         import pixelnerf_yolo_torch.utils.camera
+        import pixelnerf_yolo_torch.config.flagship
+        import pixelnerf_yolo_torch.detect
+        import pixelnerf_yolo_torch.losses
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "pixelnerf_yolo_tpu"))
