@@ -5,7 +5,10 @@
 
 Phases, each of which fails the run (non-zero exit) when its check fails:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile csrc/field_mlp.cu with nvcc (sm_90a);
+  2. build: compile csrc/field_mlp.cu (CUDA cores) and csrc/field_mlp_tc.cu
+     (tensor cores: bf16 pre_combine_pe and pre_combine) with one nvcc
+     each, started together (sm_90a); print ptxas's register, spill and
+     shared-memory report, the tensor-core kernel's at H = 512 apart;
   3. NeRF render: the flagship NeRF render (resnet34, 64 + 16 + 16
      samples, 128x128 source views, random weights from a seed) at NS=1
      and NS=2 in bf16 and f32, through make_model / make_renderer, with the
@@ -30,8 +33,10 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      f32 and bf16, on 40,013 rows (a ragged tail) and at the row counts of
      its launches in the renders above; pre_combine_pe and post_combine
      also at the YOLO widths (bf16); times of the kernel, the twin and a
-     cuBLAS addmm chain at the first render launch's rows, beside the least
-     time the card needs for that work.
+     cuBLAS addmm chain at the first render launch's rows (the tensor-core
+     kernels over 20 launches, the others over 3), beside the least time
+     the card needs for that work, with TFLOP/s, kernel/bound and
+     kernel/library.
 The launch counters are zeroed just before each render path (3, 4, 5, 6)
 and read just after it; a kernel of a path that never launched fails it.
 
@@ -60,7 +65,10 @@ REPLACES = {
     "pre_combine": "pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:323",
 }
 KINDS = tuple(REPLACES)
-SOURCE = "pixelnerf_yolo_torch/csrc/field_mlp.cu"
+SOURCES = {"cuda_core": "pixelnerf_yolo_torch/csrc/field_mlp.cu",
+           "tensor_core": "pixelnerf_yolo_torch/csrc/field_mlp_tc.cu"}
+# launches per timing: the tensor-core kernels take milliseconds
+TIMING_REPS = {"cuda_core": 3, "tensor_core": 20}
 H, CL, NB = 512, 3, 5
 # field widths: NeRF flagship (PE of xyz 42, viewdirs appended), the same
 # with use_code_viewdirs (PE of [xyz, viewdirs], 78), YOLO (1792-d latent,
@@ -213,6 +221,22 @@ def library_chain(kind, *args):
     return lin(torch.relu(x), w.w_out, w.b_out).float()
 
 
+def print_tc_report():
+    """The ptxas line (registers, spills, stack, shared memory) of the
+    tensor-core kernel at H = 512, and its dynamic shared memory."""
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    lines = fm.build_info["field_mlp_tc"]["log"].splitlines()
+    for line in lines:
+        if "warning" in line.lower():
+            print("  nvcc:", line.strip())
+    for i, line in enumerate(lines):
+        if "Compiling" in line and "pre_combine_tcILi512E" in line:
+            report = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+            print(f"tensor-core kernel, H=512: {report} | dynamic shared "
+                  f"memory {fm.smem_bytes_tc(H)} B", flush=True)
+
+
 def check_kernel(kind, spec, dtype_name, rows_list, device):
     """Hold one kernel against its twin at each row count of rows_list and
     time it at rows_list[1] (the first render launch's rows).  Returns
@@ -225,12 +249,14 @@ def check_kernel(kind, spec, dtype_name, rows_list, device):
     cdt = getattr(torch, dtype_name)
     elt = torch.empty((), dtype=cdt).element_size()
     w = fm.stack_params(field_mlp_of(spec, cdt, device), cdt)
-    w_bytes = sum(t.numel() * t.element_size() for t in vars(w).values())
+    w_bytes = sum(getattr(w, k).numel() * getattr(w, k).element_size()
+                  for k in fm.WEIGHT_NAMES)
     code = PositionalEncoding(6, 3, 1.5, True).to(device)
     code_vd = PositionalEncoding(6, 6, 1.5, True).to(device)
     g = torch.Generator(device=device).manual_seed(1)
     kernel = getattr(fm, kind)
     plain = getattr(fm, kind + "_plain")
+    variant = fm.variant(kind, cdt)
 
     def inputs(rows):
         base = torch.rand((rows, 6), generator=g, device=device) * 2 - 1
@@ -263,18 +289,22 @@ def check_kernel(kind, spec, dtype_name, rows_list, device):
               f"{scale:.3g}) {'ok' if passed else 'FAILED'}", flush=True)
         del got, ref
         if i == 1:  # the first render launch's rows: timed
-            reps = 3
+            reps = TIMING_REPS[variant]
             ms = time_ms(lambda: kernel(*args), reps)
-            plain_ms = time_ms(lambda: plain(*args), reps)
+            plain_ms = time_ms(lambda: plain(*args), 3)
             lib_ms = time_ms(lambda: library_chain(kind, *args), reps)
             bound_ms, bound_by = bound(kind, spec, rows, dtype_name, elt,
                                        w_bytes)
-            print(f"  timed at rows={rows}: kernel_ms={ms:.3f} "
-                  f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-                  f"bound_ms={bound_ms:.3f} ({bound_by}) "
-                  f"kernel/bound={ms / bound_ms:.1f}x", flush=True)
+            tflops = field_work(kind, spec, rows, elt, w_bytes)[0] / ms / 1e9
+            print(f"  timed at rows={rows} ({variant}, {reps} launches): "
+                  f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                  f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"({bound_by}) {tflops:.1f} TFLOP/s "
+                  f"kernel/bound={ms / bound_ms:.2f}x "
+                  f"kernel/library={ms / lib_ms:.2f}x", flush=True)
             res.update(rows=rows, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
+                       variant=variant, reps=reps)
         del args
         torch.cuda.empty_cache()
     res.update(max_abs_err=worst, checked_rows=list(rows_list))
@@ -672,11 +702,14 @@ def run(device) -> bool:
 
     t0 = time.perf_counter()
     fm.load_library()
-    print(f"build: {fm.build_info['path']} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in fm.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    print(f"build: both libraries in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc in parallel)", flush=True)
+    for name, info in fm.build_info.items():
+        print(f"  {name}: {info['path']}, nvcc {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("    ptxas:", line.strip())
+    print_tc_report()
 
     nerf = build_models(device)
     yolo = build_models(device, out_scale=1.0, yolo=True, backbone="custom")
@@ -740,7 +773,8 @@ def run(device) -> bool:
     for name in KINDS:
         b, f = res[(name, "bfloat16")], res[(name, "float32")]
         entry = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": SOURCES[b["variant"]], "variant": b["variant"],
             "replaces": REPLACES[name],
             "launches": sum(p[name] for p in paths.values()),
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
@@ -749,15 +783,16 @@ def run(device) -> bool:
             "rows": b["rows"], "checked_rows": b["checked_rows"],
             "dtype": "bfloat16",
             "launches_by_path": {k: p[name] for k, p in paths.items()},
+            "tflops": b["tflops"],
             "float32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")},
+                                          "library_ms", "variant")},
         }
         if (name, "yolo") in res:
             y = res[(name, "yolo")]
             entry["yolo_bfloat16"] = {k: y[k] for k in (
                 "rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}
+                "bound_ms", "bound_by", "library_ms", "tflops")}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     return ok

@@ -6,8 +6,10 @@
 //   mode 1  pre_combine_pe   <- fused_pre_combine_pe (_pre_combine_pe_kernel)
 //   mode 2  post_combine     <- fused_post_combine   (_post_combine_kernel)
 //   mode 3  pre_combine      <- fused_pre_combine    (_pre_combine_kernel)
-// It computes what they compute, with the same rounding points: every Dense
-// is an f32 accumulation plus an f32 bias, then one cast to the compute type
+// In bf16, modes 1 and 3 run on the tensor cores instead (field_mlp_tc.cu);
+// this file keeps them in f32 and refuses them in bf16.  It computes what
+// the TPU kernels compute, with the same rounding points: every Dense is
+// an f32 accumulation plus an f32 bias, then one cast to the compute type
 // T (float or bf16); the residual stream x stays in T; lin_out takes the
 // T-typed w_out and writes f32.  The positional encoding is computed
 // directly as sin(f * x + phase) (the TPU kernel's base @ M + P matmul has
@@ -29,9 +31,8 @@
 // stream from global memory, where they stay resident in the 50 MB L2, one
 // (kBK x H) tile at a time.  Each thread holds an 8 x 8 register tile of
 // the (kRows x H) layer output, so every staged weight element is reused
-// kRows times and every activation element H / 64 times.  This first
-// version runs plain f32 FMAs on the CUDA cores (bf16 operands are widened
-// on load); wgmma, TMA and warp specialisation are for later versions.
+// kRows times and every activation element H / 64 times.  It runs plain
+// f32 FMAs on the CUDA cores (bf16 operands are widened on load).
 //
 // Ragged row counts are handled by masking: rows past n_rows load zeros
 // and store nothing.
@@ -381,8 +382,12 @@ int field_mlp_launch(int mode, int bf16, const void* base, const void* zfeat,
   p.num_freqs = num_freqs;
   p.freq_factor = freq_factor;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_mode<__nv_bfloat16>(mode, p, s)
-              : dispatch_mode<float>(mode, p, s);
+  if (!bf16) return dispatch_mode<float>(mode, p, s);
+  switch (mode) {  // bf16 modes 1 and 3: field_mlp_tc.cu
+    case 0: return launch<__nv_bfloat16, 0>(p, s);
+    case 2: return launch<__nv_bfloat16, 2>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Fused field MLP: hand-written Hopper kernels and their plain twins.
 
 Counterpart of pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py.  Four kernels
-(csrc/field_mlp.cu, CUDA C++ for sm_90a) replace its four Pallas kernels:
+replace its four Pallas kernels:
 
   full_pe         <- fused_full_pe         whole ResnetFC, NS == 1
   pre_combine_pe  <- fused_pre_combine_pe  PE + lin_in + pre-combine blocks
@@ -13,6 +13,12 @@ The first three carry models whose positional encoding fits in the kernel
 (``fused_pe_forward``); the last carries the others (``fused_forward``,
 e.g. ``use_code_viewdirs = True``), followed by ``post_combine``.
 
+Two variants (``variant``): bf16 ``pre_combine_pe`` and ``pre_combine``
+run on the tensor cores (csrc/field_mlp_tc.cu: wgmma, weights streamed
+through a ring of TMA copies, packed once by ``pack_tc``); f32, and
+``full_pe`` and ``post_combine`` in either dtype, run on the CUDA cores
+(csrc/field_mlp.cu).  Both are CUDA C++ for sm_90a.
+
 Each wrapper runs its plain twin (``*_plain``: the same function with the
 same rounding points, in plain torch) when its tensors lie on the CPU,
 launches its kernel when they lie on a CUDA device, and raises otherwise.
@@ -21,8 +27,9 @@ launches its kernel when they lie on a CUDA device, and raises otherwise.
 Rounding points (shared by kernels and twins): each Dense is an f32
 accumulation plus an f32 bias, then one cast to the compute dtype; the
 residual stream stays in the compute dtype; lin_out takes the compute-dtype
-w_out and returns f32.  The library is compiled with nvcc at first use into
-``_build/`` beside this package and bound with ctypes.
+w_out and returns f32.  The libraries are compiled with nvcc at first use
+(one nvcc per source, started together) into ``_build/`` beside this
+package and bound with ctypes.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 import weakref
 from pathlib import Path
 
@@ -41,7 +49,8 @@ import torch
 from ..nn.code import PositionalEncoding
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "field_mlp.cu"
+SOURCES = {"field_mlp": PACKAGE_DIR / "csrc" / "field_mlp.cu",
+           "field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu"}
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -53,6 +62,15 @@ WEIGHT_TILE_ROWS = 16
 COLUMN_LANES = 64
 MAX_HIDDEN = 512
 SMEM_LIMIT = 232448
+# the tensor-core variant (field_mlp_tc.cu): rows per CTA, wgmma K step
+# (the depth of a ring stage and the packing's slice), ring stages, CTAs
+# per cluster, row pad of its activation tiles
+TC_ROWS = 64
+TC_K_STEP = 16
+TC_STAGES = 5
+TC_CLUSTER = 2
+TC_ROW_PAD = 8
+TC_MODES = ("pre_combine_pe", "pre_combine")
 
 MODES = {"full_pe": 0, "pre_combine_pe": 1, "post_combine": 2,
          "pre_combine": 3}
@@ -85,10 +103,19 @@ class StackedWeights:
     b1p: torch.Tensor
     w_out: torch.Tensor
     b_out: torch.Tensor
+    # the pre-combine weights packed for the tensor-core variant, made at
+    # its first launch (``tc_weights``); not a kernel argument of its own
+    tc: torch.Tensor | None = dataclasses.field(default=None, repr=False,
+                                                compare=False)
 
     @property
     def hidden(self) -> int:
         return self.w_in.shape[1]
+
+
+# StackedWeights' kernel arguments, in the order of ``field_mlp_launch``
+WEIGHT_NAMES = ("w_in", "b_in", "wz", "bz", "w0", "b0", "w1", "b1", "w0p",
+                "b0p", "w1p", "b1p", "w_out", "b_out")
 
 
 def stack_params(mlp, compute_dtype: torch.dtype) -> StackedWeights:
@@ -122,6 +149,40 @@ def stack_params(mlp, compute_dtype: torch.dtype) -> StackedWeights:
         b1p=stack(b, [blk.fc_1 for blk in post]),
         w_out=k(mlp.lin_out), b_out=b(mlp.lin_out),
     )
+
+
+def _pack_layer(m: torch.Tensor) -> torch.Tensor:
+    """(K, H) with K a multiple of TC_K_STEP -> K / 16 slices, each in
+    wgmma's K-major no-swizzle layout: element (16 t + 8 c + e, 8 q + r) of
+    slice t at q * 128 + c * 64 + r * 8 + e (8 x 8 core matrices, 128 B
+    apart along K and 256 B along N)."""
+    K, H = m.shape
+    return m.reshape(K // 16, 2, 8, H // 8, 8).permute(0, 3, 1, 4, 2) \
+        .reshape(-1)
+
+
+def pack_tc(w: StackedWeights) -> torch.Tensor:
+    """The pre-combine weights as one flat stream of 16-deep K slices in the
+    order the tensor-core kernel consumes them: lin_in (rows zero-padded
+    to a multiple of 16), then per block lin_z, fc_0, fc_1.  One slice is
+    one ring stage (16 * H elements)."""
+    d_in, H = w.w_in.shape
+    dz = -(-d_in // TC_K_STEP) * TC_K_STEP
+    w_in = torch.zeros((dz, H), dtype=w.w_in.dtype, device=w.w_in.device)
+    w_in[:d_in] = w.w_in
+    parts = [_pack_layer(w_in)]
+    for i in range(w.wz.shape[0]):
+        parts += [_pack_layer(w.wz[i]), _pack_layer(w.w0[i]),
+                  _pack_layer(w.w1[i])]
+    return torch.cat(parts).contiguous()
+
+
+def tc_weights(w: StackedWeights) -> torch.Tensor:
+    """``pack_tc(w)``, made once per StackedWeights (and so, through
+    ``stacked_params``, once per ResnetFC until its weights change)."""
+    if w.tc is None:
+        w.tc = pack_tc(w)
+    return w.tc
 
 
 _stacked = weakref.WeakKeyDictionary()
@@ -189,7 +250,27 @@ def post_combine_plain(h, w: StackedWeights) -> torch.Tensor:
 # -- the kernels -------------------------------------------------------------
 
 
+def variant(mode: str, compute_dtype) -> str:
+    """Which kernel a launch of ``mode`` takes: "tensor_core"
+    (field_mlp_tc.cu) for bf16 pre_combine_pe and pre_combine,
+    "cuda_core" (field_mlp.cu) otherwise."""
+    if mode in TC_MODES and compute_dtype == torch.bfloat16:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def smem_bytes_tc(hidden: int) -> int:
+    """Shared memory of the tensor-core kernel: alignment slack, the ring
+    (16 x H weight slice + 64 x 16 latent slice per stage), the residual
+    stream and the fc_0 output (64 x (H + 8) each), the barriers.  It does
+    not grow with d_latent."""
+    stage = TC_K_STEP * hidden * 2 + TC_ROWS * TC_K_STEP * 2
+    return (1024 + TC_STAGES * stage + 2 * TC_ROWS * (hidden + TC_ROW_PAD) * 2
+            + 16 * TC_STAGES)
+
+
 def smem_bytes(mode: str, elt_bytes: int, hidden: int, d_latent: int) -> int:
+    """Shared memory of the CUDA-core kernel of ``mode``."""
     lat = 0 if mode == "post_combine" else ROWS_PER_BLOCK * d_latent
     return elt_bytes * (2 * ROWS_PER_BLOCK * hidden + lat
                         + WEIGHT_TILE_ROWS * hidden)
@@ -200,10 +281,16 @@ def fits(d_in: int, d_latent: int, hidden: int, compute_dtype,
     """Whether the kernel of ``mode`` takes these widths: hidden a multiple
     of 64 up to 512 and the block's tiles within the shared-memory limit;
     before the combine (every mode but post_combine) also the z-features,
-    rounded up to the weight tile, no wider than hidden and d_latent a
-    multiple of the weight tile."""
+    rounded up to the weight tile (the tensor-core variant: its K step),
+    no wider than hidden and d_latent a multiple of the same.  The
+    tensor-core variant's shared memory does not depend on d_latent."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return False
+    if variant(mode, compute_dtype) == "tensor_core":
+        return (hidden % 64 == 0 and 0 < hidden <= MAX_HIDDEN
+                and smem_bytes_tc(hidden) <= SMEM_LIMIT
+                and -(-d_in // TC_K_STEP) * TC_K_STEP <= hidden
+                and d_latent > 0 and d_latent % TC_K_STEP == 0)
     elt = torch.empty((), dtype=compute_dtype).element_size()
     ok = (
         hidden % COLUMN_LANES == 0
@@ -222,7 +309,9 @@ class KernelBuildError(RuntimeError):
     pass
 
 
-_library = None
+_libraries: dict = {}
+# per library: path, the compiler's output (ptxas -v: registers, spills,
+# shared memory per kernel) and the seconds its nvcc took
 build_info: dict = {}
 
 
@@ -237,34 +326,51 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH or CUDA_HOME)")
 
 
-def build() -> Path:
-    """Compile csrc/field_mlp.cu (once per source and flags) and return the
-    shared library's path.  The compiler's register and shared-memory
-    report lands in ``build_info``."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfield_mlp_{tag}.so"
-    if out.exists():
-        build_info.update(path=str(out), log="")
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    build_info.update(path=str(out), log=proc.stdout + proc.stderr)
-    return out
+def build() -> dict:
+    """Compile each source of SOURCES (once per source and flags), one nvcc
+    per source, all started together; return {name: library path}.  The
+    compiler's report lands in ``build_info``."""
+    outs, procs = {}, {}
+    for name, source in SOURCES.items():
+        src = source.read_bytes()
+        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+            .hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}_{tag}.so"
+        outs[name] = out
+        if out.exists():
+            log = out.with_suffix(".log")
+            build_info[name] = {"path": str(out), "seconds": 0.0,
+                                "log": log.read_text() if log.exists() else ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed "
+                          f"({proc.returncode}):\n{log}")
+            continue
+        outs[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, outs[name])
+        build_info[name] = {"path": str(outs[name]), "log": log,
+                            "seconds": time.perf_counter() - t0}
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return outs
 
 
-def load_library() -> ctypes.CDLL:
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
+def load_library() -> dict:
+    """Build and load both libraries; check that their tiling constants
+    agree with this module's mirrors."""
+    if not _libraries:
+        paths = build()
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib = ctypes.CDLL(str(paths["field_mlp"]))
         lib.field_mlp_launch.argtypes = (
             [ci, ci] + [vp] * 19 + [ci] * 8 + [ctypes.c_float, vp]
         )
@@ -276,8 +382,22 @@ def load_library() -> ctypes.CDLL:
         if (lib.field_mlp_rows_per_block(), lib.field_mlp_weight_tile_rows()) \
                 != (ROWS_PER_BLOCK, WEIGHT_TILE_ROWS):
             raise KernelBuildError("kernel tiling constants disagree")
-        _library = lib
-    return _library
+        tc = ctypes.CDLL(str(paths["field_mlp_tc"]))
+        tc.field_mlp_tc_launch.argtypes = (
+            [ci] + [vp] * 9 + [ci] * 6 + [ctypes.c_float, vp]
+        )
+        tc.field_mlp_tc_launch.restype = ci
+        tc.field_mlp_tc_error_string.argtypes = [ci]
+        tc.field_mlp_tc_error_string.restype = ctypes.c_char_p
+        consts = ("rows_per_cta", "k_step", "stages", "cluster", "row_pad")
+        for c in consts:
+            getattr(tc, f"field_mlp_tc_{c}").restype = ci
+        got = tuple(getattr(tc, f"field_mlp_tc_{c}")() for c in consts)
+        if got != (TC_ROWS, TC_K_STEP, TC_STAGES, TC_CLUSTER, TC_ROW_PAD):
+            raise KernelBuildError(
+                f"tensor-core kernel tiling constants disagree: {got}")
+        _libraries.update(field_mlp=lib, field_mlp_tc=tc)
+    return _libraries
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
@@ -326,7 +446,7 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
             f"field MLP kernel does not take hidden={w.hidden} "
             f"d_latent={d_latent} d_in={d_in} dtype={cdt}"
         )
-    lib = load_library()
+    libs = load_library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -334,17 +454,33 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
     n_pre = w.wz.shape[0] if mode != "post_combine" else 0
     n_post = w.w0p.shape[0] if mode in ("full_pe", "post_combine") else 0
     stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = lib.field_mlp_launch(
-            MODES[mode], int(cdt == torch.bfloat16), ptr(base), ptr(zfeat),
-            ptr(latent), ptr(h), *(ptr(getattr(w, f.name)) for f in dataclasses.fields(w)),
-            ptr(out),
-            n_rows, d_in, d_latent, w.hidden, n_pre, n_post,
-            w.w_out.shape[1], num_freqs, float(freq_factor), stream,
-        )
+    if variant(mode, cdt) == "tensor_core":
+        lib, name = libs["field_mlp_tc"], "field_mlp_tc"
+        if latent.data_ptr() % 16:
+            raise ValueError("latent must start on a 16-byte boundary (TMA)")
+        packed = tc_weights(w)
+        with torch.cuda.device(device):
+            err = lib.field_mlp_tc_launch(
+                MODES[mode], ptr(base), ptr(zfeat), ptr(latent), ptr(packed),
+                ptr(w.b_in), ptr(w.bz), ptr(w.b0), ptr(w.b1), ptr(out),
+                n_rows, d_in, d_latent, w.hidden, n_pre, num_freqs,
+                float(freq_factor), stream,
+            )
+        error_string = lib.field_mlp_tc_error_string
+    else:
+        lib, name = libs["field_mlp"], "field_mlp"
+        with torch.cuda.device(device):
+            err = lib.field_mlp_launch(
+                MODES[mode], int(cdt == torch.bfloat16), ptr(base),
+                ptr(zfeat), ptr(latent), ptr(h),
+                *(ptr(getattr(w, f)) for f in WEIGHT_NAMES), ptr(out),
+                n_rows, d_in, d_latent, w.hidden, n_pre, n_post,
+                w.w_out.shape[1], num_freqs, float(freq_factor), stream,
+            )
+        error_string = lib.field_mlp_error_string
     if err != 0:
-        msg = lib.field_mlp_error_string(err).decode()
-        raise RuntimeError(f"field_mlp {mode} launch failed: {msg} ({err})")
+        msg = error_string(err).decode()
+        raise RuntimeError(f"{name} {mode} launch failed: {msg} ({err})")
     launches[mode] += 1
     return out
 

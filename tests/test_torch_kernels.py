@@ -9,6 +9,8 @@ The tests marked ``cuda`` need an NVIDIA GPU and skip elsewhere; the rest
 check the wrappers' CPU dispatch and argument checks.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -201,3 +203,66 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         fm.full_pe(base[:8], lat, w, code)
     with pytest.raises(ValueError, match="zfeat"):
         fm.pre_combine(base, lat, w)  # 6 columns, w_in takes 42
+
+
+# -- the tensor-core variant (bf16 pre_combine_pe and pre_combine) -----------
+
+# (mode, d_in, d_latent, hidden): NeRF, use_code_viewdirs and YOLO widths,
+# then narrow ones (m64n32k16 in place of m64n256k16; 192 an odd count of
+# 32-column chunks per warpgroup)
+TC_WIDTHS = {
+    "nerf": ("pre_combine_pe", 42, 512, 512),
+    "viewdirs": ("pre_combine", 78, 512, 512),
+    "yolo": ("pre_combine_pe", 42, 1792, 512),
+    "narrow": ("pre_combine_pe", 42, 48, 128),
+    "narrow_z": ("pre_combine", 78, 64, 192),
+    "h64": ("pre_combine_pe", 42, 64, 64),
+}
+
+
+def _tc_case(device, widths, n_pre, rows):
+    mode, d_in, d_latent, hidden = TC_WIDTHS[widths]
+    dtype = torch.bfloat16
+    w = fm.stack_params(_mlp(hidden, d_latent, dtype, d_in=d_in).to(device),
+                        dtype)
+    # the first n_pre blocks (n_pre = 0: lin_in alone)
+    w = dataclasses.replace(
+        w, **{k: getattr(w, k)[:n_pre].contiguous()
+              for k in ("wz", "bz", "w0", "b0", "w1", "b1")})
+    base, lat = _inputs(rows, d_latent, dtype, device)
+    code = PositionalEncoding(6, 3, 1.5, True).to(device)
+    args = ((base, lat, w, code) if mode == "pre_combine_pe"
+            else (_zfeat(rows, d_in, dtype, device), lat, w))
+    return mode, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 1037, 40013])
+@pytest.mark.parametrize("n_pre", [0, 1, 3])
+@pytest.mark.parametrize("widths", list(TC_WIDTHS))
+def test_tc_kernel_matches_twin(cuda_device, widths, n_pre, rows):
+    """The wgmma kernel against its twin: lin_in alone, one and three
+    blocks; ragged rows (1,037 rows are 17 row tiles: a cluster with a CTA
+    past the last row)."""
+    mode, args = _tc_case(cuda_device, widths, n_pre, rows)
+    assert fm.variant(mode, torch.bfloat16) == "tensor_core"
+    fm.reset_launches()
+    with torch.no_grad():
+        got = getattr(fm, mode)(*args)
+        ref = getattr(fm, mode + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert fm.launches[mode] == 1
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_tc_kernel_raises_on_unaligned_latent(cuda_device):
+    mode, (base, lat, w, code) = _tc_case(cuda_device, "h64", 1, 9)
+    flat = torch.empty(lat.numel() + 1, dtype=lat.dtype, device=cuda_device)
+    shifted = flat[1:].view(lat.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fm.pre_combine_pe(base, shifted, w, code)
