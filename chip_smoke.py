@@ -5,15 +5,17 @@
 
 Phases, each of which fails the run (non-zero exit) when its check fails:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile csrc/field_mlp.cu (CUDA cores) and csrc/field_mlp_tc.cu
-     (tensor cores: bf16 pre_combine_pe and pre_combine) with one nvcc
+  2. build: compile csrc/field_mlp.cu (CUDA cores: every f32 mode) and
+     csrc/field_mlp_tc.cu (tensor cores: every bf16 mode) with one nvcc
      each, started together (sm_90a); print ptxas's register, spill and
-     shared-memory report, the tensor-core kernel's at H = 512 apart;
+     shared-memory report, the tensor-core kernel's at H = 512 apart (it
+     fails when that kernel spills);
   3. NeRF render: the flagship NeRF render (resnet34, 64 + 16 + 16
      samples, 128x128 source views, random weights from a seed) at NS=1
      and NS=2 in bf16 and f32, through make_model / make_renderer, with the
-     PE kernels (full_pe; pre_combine_pe + post_combine); then the same
-     renders with model.use_fused_mlp = false, compared with the kernel's;
+     PE kernels (full_pe; pre_combine_pe + post_combine; bf16 on the
+     tensor cores, f32 on the CUDA cores); then the same renders with
+     model.use_fused_mlp = false, compared with the kernel's;
   4. YOLO render: the YOLO flagship at full width (ELAN backbone, 1792-d
      latent, 5 x 512 ResnetFC, 21 outputs) at NS=3 in bf16, 16,384 rays of
      a 128x128 target view, through pre_combine_pe + post_combine, then
@@ -34,9 +36,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      its launches in the renders above; pre_combine_pe and post_combine
      also at the YOLO widths (bf16); times of the kernel, the twin and a
      cuBLAS addmm chain at the first render launch's rows (the tensor-core
-     kernels over 20 launches, the others over 3), beside the least time
-     the card needs for that work, with TFLOP/s, kernel/bound and
-     kernel/library.
+     kernels, every bf16 one, over 20 launches, the CUDA-core ones over
+     3), beside the least time the card needs for that work, with
+     TFLOP/s, kernel/bound and kernel/library.
 The launch counters are zeroed just before each render path (3, 4, 5, 6)
 and read just after it; a kernel of a path that never launched fails it.
 
@@ -221,20 +223,35 @@ def library_chain(kind, *args):
     return lin(torch.relu(x), w.w_out, w.b_out).float()
 
 
-def print_tc_report():
-    """The ptxas line (registers, spills, stack, shared memory) of the
-    tensor-core kernel at H = 512, and its dynamic shared memory."""
+def print_tc_report() -> bool:
+    """The ptxas lines (registers, spills, stack, shared memory) of every
+    tensor-core kernel instantiation at H = 512 (one per group of modes:
+    the pre-combine half, the whole chain, the post-combine half), and
+    their dynamic shared memory.  False when one spills: a spill there
+    costs several times the kernel's time."""
+    import re
+
     from pixelnerf_yolo_torch.ops import field_mlp as fm
 
     lines = fm.build_info["field_mlp_tc"]["log"].splitlines()
     for line in lines:
         if "warning" in line.lower():
             print("  nvcc:", line.strip())
+    ok, found = True, 0
     for i, line in enumerate(lines):
-        if "Compiling" in line and "pre_combine_tcILi512E" in line:
+        if "Compiling" in line and "ILi512E" in line:
+            found += 1
             report = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", report)
+            good = spill is not None and spill.groups() == ("0", "0")
+            ok &= good
             print(f"tensor-core kernel, H=512: {report} | dynamic shared "
-                  f"memory {fm.smem_bytes_tc(H)} B", flush=True)
+                  f"memory {fm.smem_bytes_tc(H)} B "
+                  f"{'ok' if good else 'FAILED: spills'}", flush=True)
+    if not found:
+        print("FAILED: no ptxas report of the H = 512 tensor-core kernel")
+    return ok and found > 0
 
 
 def check_kernel(kind, spec, dtype_name, rows_list, device):
@@ -709,7 +726,7 @@ def run(device) -> bool:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("    ptxas:", line.strip())
-    print_tc_report()
+    tc_ok = print_tc_report()
 
     nerf = build_models(device)
     yolo = build_models(device, out_scale=1.0, yolo=True, backbone="custom")
@@ -720,10 +737,11 @@ def run(device) -> bool:
 
     # -- the render paths, each between a reset and a read of the counts --
     nerf_out, nerf_launches = nerf_path(nerf, RENDERS, device, "NeRF")
-    ok = all(nerf_launches[k] > 0
-             for k in ("full_pe", "pre_combine_pe", "post_combine"))
-    if not ok:
+    launched = all(nerf_launches[k] > 0
+                   for k in ("full_pe", "pre_combine_pe", "post_combine"))
+    if not launched:
         print("FAILED: a kernel of the NeRF path was never launched")
+    ok = tc_ok and launched
     ok &= compare_plain(nerf, RENDERS, nerf_out, device, "NeRF")
     del nerf_out
     torch.cuda.empty_cache()

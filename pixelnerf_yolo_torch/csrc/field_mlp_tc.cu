@@ -1,28 +1,39 @@
-// Field MLP before the view combine, bf16, on Hopper tensor cores (sm_90a).
+// Fused pixelNeRF field MLP (ResnetFC), bf16, on Hopper tensor cores
+// (sm_90a).
 //
-// Replaces, for bf16, two Pallas TPU kernels of the JAX package's
+// Replaces, for bf16, the four Pallas TPU kernels of the JAX package's
 // pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:
+//   mode 0  full_pe         <- fused_full_pe        (_full_pe_kernel)
 //   mode 1  pre_combine_pe  <- fused_pre_combine_pe (_pre_combine_pe_kernel)
+//   mode 2  post_combine    <- fused_post_combine   (_post_combine_kernel)
 //   mode 3  pre_combine     <- fused_pre_combine    (_pre_combine_kernel)
-// (their f32 variants, and modes 0 and 2, stay in field_mlp.cu).  Both run
-// lin_in, then n_pre x (lin_z, fc_0, fc_1); mode 1 computes the positional
-// encoding of [xyz, viewdirs] in the kernel, mode 3 loads given z-features.
-// The rounding points are field_mlp.cu's: every Dense is an f32
-// accumulation plus an f32 bias, then one cast to bf16; the residual add is
-// bf16(f32(x) + f32(t)); relu where the reference applies it.  Only the
-// order of summation differs.
+// (their f32 variants stay on the CUDA cores in field_mlp.cu).  Modes 0, 1
+// and 3 run lin_in, then n_pre x (lin_z, fc_0, fc_1); modes 0 and 1 compute
+// the positional encoding of [xyz, viewdirs] in the kernel, mode 3 loads
+// given z-features.  Modes 0 and 2 run n_post x (fc_0, fc_1), then lin_out
+// (f32 output); mode 2 starts from a given h.  The rounding points are the
+// plain twins' (ops/field_mlp.py): every Dense is an f32 accumulation plus
+// an f32 bias, then one cast to bf16; the residual add is bf16(f32(x) +
+// f32(t)); relu where the reference applies it; lin_out is relu(x) times
+// the bf16 w_out, accumulated in f32, plus the f32 b_out.  Only the order
+// of summation differs.
 //
 // What bounds it: at H = dL = 512, n_pre = 3, a row costs 2.38 M
-// multiply-adds (4.35 M at dL = 1792) against ~2 KB of input and output,
+// multiply-adds (4.35 M at dL = 1792; 3.43 M for the whole chain of mode
+// 0, 1.05 M for mode 2's two blocks) against ~2 KB of input and output,
 // so the work is bound by the tensor cores (989 TFLOP/s bf16: 5.0 ms for
-// 1,048,576 rows).  The weights (4.8 MB at dL 512, 8.7 MB at dL 1792) stay
-// in the 50 MB L2, but cannot sit in one SM's 227 KB, so they stream:
+// 1,048,576 rows of mode 1).  The weights (4.8 MB at dL 512, 8.7 MB at dL
+// 1792) stay in the 50 MB L2, but cannot sit in one SM's 227 KB, so they
+// stream:
 //   - The host packs them once (ops/field_mlp.py::pack_tc) as a sequence
-//     of 16-deep K slices in the order the chain consumes them, each slice
-//     in wgmma's K-major no-swizzle core-matrix layout (8 x 16 B core
-//     matrices; 128 B apart along K, 256 B apart along N).  One ring stage
-//     is then one contiguous 32 * H bytes, loaded by a 2-D TMA tensor copy
-//     (rows of 512 B) with mbarrier transaction counts.
+//     of 16-deep K slices in the order the chain consumes them (lin_in,
+//     pre blocks, post blocks, lin_out), each slice in wgmma's K-major
+//     no-swizzle core-matrix layout (8 x 16 B core matrices; 128 B apart
+//     along K, 256 B apart along N).  One ring stage is then one
+//     contiguous 32 * H bytes, loaded by a 2-D TMA tensor copy (rows of
+//     512 B) with mbarrier transaction counts.  lin_out's slices (16 x
+//     Nout) lie H / Nout to a stage.  Mode 2 starts its walk at the first
+//     post block's stage (the host offsets the stream's address).
 //   - A producer warp (one thread) issues every stage as soon as its slot
 //     is free; each consumer warpgroup releases a stage with an mbarrier
 //     arrive on every CTA of the cluster.  There is no __syncthreads in
@@ -57,8 +68,17 @@
 //     relu'd copy of x is kept (it would cost 64 KB of shared memory).
 //     X and the fc_0 output are row-major with an 8-element row pad
 //     (conflict-free ldmatrix and epilogue stores).
+//   - lin_out (modes 0 and 2) is a small product: Nout = 8 kG columns
+//     (d_out rounded up: 8 for NeRF's 4, 24 for YOLO's 21), streamed like
+//     the other layers.  The two consumer warpgroups split its kG
+//     8-column groups (the first takes ceil(kG / 2)) and issue one
+//     m64n8k16 product per group and K slice (4 f32 accumulators each,
+//     relu'd register A from X); at kG = 1 the second only releases
+//     lin_out's stage.  Its 1-2 stages are 1-2% of a chain of 129-420.
 // Rows past n_rows load zeros and store nothing; the tensors are not
-// padded.  h is written with 16-byte stores.
+// padded.  h is read (mode 2) and written (modes 1, 3) with 16-byte
+// accesses; the f32 output of modes 0 and 2 with scalar stores (a row of
+// d_out floats is not 16-byte aligned).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,19 +109,40 @@ enum Epilogue { kSet = 0, kAdd = 1, kRelu = 2 };
 enum Source { kBuf = 0, kReluBuf = 1, kLatent = 2 };
 
 struct Params {
-  const float* base;    // (n, 6) f32 [xyz, viewdirs], mode 1
+  const float* base;    // (n, 6) f32 [xyz, viewdirs], modes 0 and 1
   const bf16* zfeat;    // (n, d_in), mode 3
+  const bf16* h;        // (n, H), mode 2
   const float* b_in;    // (H,)
   const float* bz;      // (n_pre, H)
   const float* b0;
   const float* b1;
-  bf16* out;            // (n, H)
-  int n_rows, d_in, d_latent, n_pre, num_freqs, mode;
+  const float* b0p;     // (n_post, H)
+  const float* b1p;
+  const float* b_out;   // (d_out,)
+  void* out;            // (n, H) bf16 (modes 1, 3), (n, d_out) f32 (0, 2)
+  int n_rows, d_in, d_latent, n_pre, n_post, d_out, num_freqs, mode;
   float freq_factor;
 };
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
+}
+
+// lin_out's width Nout: d_out rounded up to a multiple of 8 up to 32, then
+// to 64, 128 or 256 (one lin_out instantiation per width); 0 past 256
+__host__ __device__ constexpr int out_width(int d_out) {
+  return d_out <= 0    ? 0
+         : d_out <= 32 ? round_up(d_out, 8)
+         : d_out <= 64 ? 64
+         : d_out <= 128 ? 128
+         : d_out <= 256 ? 256
+                        : 0;
+}
+
+// ring stages of lin_out: its H / 16 K slices of 16 x nout, H / nout to a
+// stage (nout <= H)
+__host__ __device__ constexpr int out_stages(int h, int nout) {
+  return (h / kBK + h / nout - 1) / (h / nout);
 }
 
 // -- PTX helpers -------------------------------------------------------------
@@ -252,6 +293,18 @@ __device__ __forceinline__ void wgmma_n16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d[0, 4) += A (64 x 16, registers) * B (16 x 8, one 8-row group)
+__device__ __forceinline__ void wgmma_n8(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // -- the chain ---------------------------------------------------------------
 
 template <int kH>
@@ -289,34 +342,72 @@ struct Stage {
   }
 };
 
-// The producer: one thread issues the copies, in the order the chain
-// consumes the packed K slices (lin_in's, then per block lin_z's, each
-// with its latent slice, fc_0's and fc_1's), each as soon as its slot is
-// free, that is once every consumer warpgroup of the cluster has released
-// the slot's previous use.
+// The groups of modes, each with its own kernel instantiation: kPreHalf
+// the pre-combine half (modes 1, 3), kWhole the whole chain (mode 0),
+// kPostHalf the post-combine half (mode 2).  Measured on the H100, code of
+// the other groups in one kernel slowed modes 1 and 3 by ~4%, though it
+// never ran.
+enum Kind { kPreHalf = 0, kWhole = 1, kPostHalf = 2 };
+
+// Stages of a mode's walk: lin_in and n_pre x (lin_z's latent-carrying
+// stages, fc_0, fc_1) before the combine (modes 0, 1, 3); n_post x (fc_0,
+// fc_1) and lin_out after it (modes 0, 2).
 template <int kH>
+int walk_stages(const Params& p) {
+  int n = 0;
+  if (p.mode != 2)
+    n += round_up(p.d_in, kBK) / kBK + p.n_pre * (p.d_latent + 2 * kH) / kBK;
+  if (p.mode == 0 || p.mode == 2)
+    n += p.n_post * 2 * kH / kBK + out_stages(kH, out_width(p.d_out));
+  return n;
+}
+
+// The producer: one thread issues the copies, in the order the chain
+// consumes the packed K slices (lin_in's; per pre block lin_z's, each with
+// its latent slice, fc_0's and fc_1's; per post block fc_0's and fc_1's;
+// lin_out's), each as soon as its slot is free, that is once every
+// consumer warpgroup of the cluster has released the slot's previous use.
+// Its issue is on the critical path: measured on the H100, nested loops
+// over the blocks in place of these flat ones slowed modes 1 and 3 by ~1.5%.
+template <int kH, int kKind>
 __device__ __forceinline__ void fill(const CUtensorMap* w_map,
                                     const CUtensorMap* lat_map,
                                     const Params& p, uint32_t base) {
   constexpr uint32_t kW = kBK * kH * 2;
   constexpr uint32_t kPiece = kW / kCluster;
   constexpr int kPieceRows = kH / 16 / kCluster;  // 512-byte rows of w_map
-  const int n_in = round_up(p.d_in, kBK) / kBK;
-  const int n_lat = p.d_latent / kBK;
-  const int per_blk = n_lat + 2 * kH / kBK;
-  const int total = n_in + p.n_pre * per_blk;
+  constexpr int kBlock = 2 * kH / kBK;             // stages of fc_0 + fc_1
   const int row0 = blockIdx.x * kRows;
   const uint32_t rank = cluster_rank();
-  // u: the stage's place in its block (negative during lin_in); the first
-  // n_lat places carry a latent slice
-  for (int t = 0, u = -n_in; t < total; ++t, u = u + 1 == per_blk ? 0 : u + 1) {
-    const Stage<kH> st(base, t);
-    const bool lat = u >= 0 && u < n_lat;
-    mbar_wait(st.empty, st.parity ^ 1);
-    mbar_expect_tx(st.full, kW + (lat ? kLatBytes : 0));
-    tma_load_2d_all(st.addr + rank * kPiece, w_map, 0,
-                    (t * kCluster + rank) * kPieceRows, st.full);
-    if (lat) tma_load_2d(st.addr + kW, lat_map, u * kBK, row0, st.full);
+  int t = 0;
+  if constexpr (kKind != kPostHalf) {
+    const int n_in = round_up(p.d_in, kBK) / kBK;
+    const int n_lat = p.d_latent / kBK;
+    const int per_blk = n_lat + kBlock;
+    const int total = n_in + p.n_pre * per_blk;
+    // u: the stage's place in its block (negative during lin_in); the
+    // first n_lat places carry a latent slice
+    for (int u = -n_in; t < total; ++t, u = u + 1 == per_blk ? 0 : u + 1) {
+      const Stage<kH> st(base, t);
+      const bool lat = u >= 0 && u < n_lat;
+      mbar_wait(st.empty, st.parity ^ 1);
+      mbar_expect_tx(st.full, kW + (lat ? kLatBytes : 0));
+      tma_load_2d_all(st.addr + rank * kPiece, w_map, 0,
+                      (t * kCluster + rank) * kPieceRows, st.full);
+      if (lat) tma_load_2d(st.addr + kW, lat_map, u * kBK, row0, st.full);
+    }
+  }
+  if constexpr (kKind != kPreHalf) {
+    // the post blocks and lin_out: weights only
+    const int total =
+        t + p.n_post * kBlock + out_stages(kH, out_width(p.d_out));
+    for (; t < total; ++t) {
+      const Stage<kH> st(base, t);
+      mbar_wait(st.empty, st.parity ^ 1);
+      mbar_expect_tx(st.full, kW);
+      tma_load_2d_all(st.addr + rank * kPiece, w_map, 0,
+                      (t * kCluster + rank) * kPieceRows, st.full);
+    }
   }
 }
 
@@ -407,6 +498,105 @@ __device__ __forceinline__ void layer(const bf16* A, int K,
   consumer_sync();
 }
 
+// out[row0 + r, c] = relu(X[r]) . w_out[:, c] + b_out[c], in f32, for c <
+// d_out and the CTA's valid rows, for this warpgroup's 8-column groups
+// [kFirst, kFirst + kCount) of lin_out's kG.  w_out arrives as H / 16 K
+// slices of 16 x kN (kN = 8 kG = out_width(d_out)), kH / kN to a ring
+// stage; each slice is kCount m64n8k16 products on one relu'd A fragment.
+// A warpgroup with no group only releases the stages, after their copy
+// landed, so that its arrival counts toward this use of the slot.
+template <int kH, int kG, int kFirst, int kCount>
+__device__ __forceinline__ void lin_out_part(const bf16* X, const Params& p,
+                                             int row0, Walk& walk) {
+  constexpr int kLd = kH + kPad;
+  constexpr int kN = 8 * kG;
+  constexpr int kSlices = kH / kBK;
+  constexpr int kPerStage = kH / kN;
+  constexpr int kAcc = 4 * (kCount > 0 ? kCount : 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quarter = warp % 4;
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  const int arow = 16 * quarter + lane % 16;
+  const int achunk = lane / 16;
+  for (int j0 = 0; j0 < kSlices; j0 += kPerStage) {
+    const Stage<kH> st(walk.base, walk.t);
+    mbar_wait(st.full, st.parity);
+    if constexpr (kCount > 0) {
+      const int j1 = min(kSlices, j0 + kPerStage);
+#pragma unroll 1
+      for (int j = j0; j < j1; ++j) {
+        uint32_t a[4];
+        ldmatrix_x4(a, smem_u32(X + arow * kLd + j * kBK + 8 * achunk));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = relu_bf16x2(a[i]);
+        // the slice's first group, then groups 256 B apart
+        const uint64_t desc =
+            make_desc(st.addr + (j - j0) * kBK * kN * 2 + kFirst * 256);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int g = 0; g < kCount; ++g)
+          wgmma_n8(acc + 4 * g, a, desc + (uint64_t)g * (256 >> 4));
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+      }
+    }
+    if (quarter == 0 && lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kCluster; ++c) mbar_arrive_cluster(st.empty, c);
+    }
+    ++walk.t;
+  }
+  // accumulator i: row 16 q + lane / 4 + 8 ((i / 2) % 2), column 8 (kFirst
+  // + i / 4) + 2 (lane % 4) + i % 2
+  float* out = static_cast<float*>(p.out);
+  const int r_lo = row0 + 16 * quarter + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 4 * kCount; ++i) {
+    const int row = r_lo + 8 * ((i / 2) % 2);
+    const int col = 8 * (kFirst + i / 4) + 2 * (lane % 4) + i % 2;
+    if (col < p.d_out && row < p.n_rows)
+      out[(size_t)row * p.d_out + col] = acc[i] + p.b_out[col];
+  }
+}
+
+// lin_out at Nout = 8 kG: the first consumer warpgroup takes the first
+// ceil(kG / 2) column groups, the second the rest, so that no thread holds
+// more than 64 accumulators (ptxas spilled 128 at Nout = 256)
+template <int kH, int kG>
+__device__ __forceinline__ void lin_out(const bf16* X, const Params& p,
+                                        int row0, Walk& walk) {
+  constexpr int kG0 = (kG + 1) / 2;
+  if (threadIdx.x / 128 == 0)
+    lin_out_part<kH, kG, 0, kG0>(X, p, row0, walk);
+  else
+    lin_out_part<kH, kG, kG0, kG - kG0>(X, p, row0, walk);
+}
+
+// lin_out at the width out_width(d_out) (the host checked it is <= kH)
+template <int kH>
+__device__ __forceinline__ void lin_out_any(const bf16* X, const Params& p,
+                                            int row0, Walk& walk) {
+  switch (out_width(p.d_out) / 8) {
+    case 1: lin_out<kH, 1>(X, p, row0, walk); break;
+    case 2: lin_out<kH, 2>(X, p, row0, walk); break;
+    case 3: lin_out<kH, 3>(X, p, row0, walk); break;
+    case 4: lin_out<kH, 4>(X, p, row0, walk); break;
+    case 8: lin_out<kH, 8>(X, p, row0, walk); break;
+    case 16:
+      if constexpr (kH >= 128) lin_out<kH, 16>(X, p, row0, walk);
+      break;
+    case 32:
+      if constexpr (kH >= 256) lin_out<kH, 32>(X, p, row0, walk);
+      break;
+  }
+}
+
 // Z[r, col] (row stride ld) for the CTA's rows: mode 1 the positional
 // encoding [x, sin(f_0 x), cos(f_0 x), ..., vd] with cos(t) = sin(t +
 // pi/2), products and sums rounded separately as in field_mlp.cu; mode 3
@@ -448,11 +638,11 @@ __host__ __device__ constexpr int smem_bytes() {
   return 1024 + Layout<kH>::kBytes;  // + alignment slack
 }
 
-template <int kH>
+template <int kH, int kKind>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-    pre_combine_tc(const __grid_constant__ CUtensorMap w_map,
-                   const __grid_constant__ CUtensorMap lat_map,
-                   const Params p) {
+    field_mlp_tc(const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap lat_map,
+                 const Params p) {
   using L = Layout<kH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -463,7 +653,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   walk.base = smem_u32(sm);
 
   const int row0 = blockIdx.x * kRows;
-  const int dz = round_up(p.d_in, kBK);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       const Stage<kH> st(walk.base, s);
@@ -477,23 +666,63 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x / 32 == kConsumers / 32) {
     // the producer warp: one thread walks every stage
-    if (threadIdx.x % 32 == 0) fill<kH>(&w_map, &lat_map, p, walk.base);
+    if (threadIdx.x % 32 == 0)
+      fill<kH, kKind>(&w_map, &lat_map, p, walk.base);
   } else {
-    front_end(p, row0, dz, L::kLd, A2);
-    consumer_sync();
-    layer<kH, kBuf, kSet>(A2, dz, p.b_in, X, walk);
-    for (int blk = 0; blk < p.n_pre; ++blk) {
-      layer<kH, kLatent, kAdd>(nullptr, p.d_latent, p.bz + blk * kH, X, walk);
-      layer<kH, kReluBuf, kRelu>(X, kH, p.b0 + blk * kH, A2, walk);
-      layer<kH, kBuf, kAdd>(A2, kH, p.b1 + blk * kH, X, walk);
+    if constexpr (kKind == kPostHalf) {
+      // X <- h: 16-byte loads of the CTA's valid rows, zeros past n_rows
+      for (int i = threadIdx.x; i < kRows * kH / 8; i += kConsumers) {
+        const int r = i / (kH / 8);
+        const int c = (i - r * (kH / 8)) * 8;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (row0 + r < p.n_rows)
+          v = *reinterpret_cast<const uint4*>(p.h + (size_t)(row0 + r) * kH +
+                                              c);
+        *reinterpret_cast<uint4*>(X + r * L::kLd + c) = v;
+      }
+      consumer_sync();
+    } else {
+      const int dz = round_up(p.d_in, kBK);
+      front_end(p, row0, dz, L::kLd, A2);
+      consumer_sync();
+      layer<kH, kBuf, kSet>(A2, dz, p.b_in, X, walk);
     }
-    // h: 16-byte stores of the CTA's valid rows
-    for (int i = threadIdx.x; i < kRows * kH / 8; i += kConsumers) {
-      const int r = i / (kH / 8);
-      const int c = (i - r * (kH / 8)) * 8;
-      if (row0 + r < p.n_rows)
-        *reinterpret_cast<uint4*>(p.out + (size_t)(row0 + r) * kH + c) =
-            *reinterpret_cast<const uint4*>(X + r * L::kLd + c);
+    if constexpr (kKind == kPreHalf) {
+      for (int blk = 0; blk < p.n_pre; ++blk) {
+        layer<kH, kLatent, kAdd>(nullptr, p.d_latent, p.bz + blk * kH, X,
+                                 walk);
+        layer<kH, kReluBuf, kRelu>(X, kH, p.b0 + blk * kH, A2, walk);
+        layer<kH, kBuf, kAdd>(A2, kH, p.b1 + blk * kH, X, walk);
+      }
+      // h: 16-byte stores of the CTA's valid rows
+      bf16* h = static_cast<bf16*>(p.out);
+      for (int i = threadIdx.x; i < kRows * kH / 8; i += kConsumers) {
+        const int r = i / (kH / 8);
+        const int c = (i - r * (kH / 8)) * 8;
+        if (row0 + r < p.n_rows)
+          *reinterpret_cast<uint4*>(h + (size_t)(row0 + r) * kH + c) =
+              *reinterpret_cast<const uint4*>(X + r * L::kLd + c);
+      }
+    } else if constexpr (kKind == kWhole) {
+      // the pre blocks (lin_z, fc_0, fc_1), then the post blocks (fc_0,
+      // fc_1), through one inlined copy of fc_0 and fc_1
+      for (int blk = 0; blk < p.n_pre + p.n_post; ++blk) {
+        const bool pre = blk < p.n_pre;
+        const int i = pre ? blk : blk - p.n_pre;
+        if (pre)
+          layer<kH, kLatent, kAdd>(nullptr, p.d_latent, p.bz + i * kH, X,
+                                   walk);
+        layer<kH, kReluBuf, kRelu>(X, kH, (pre ? p.b0 : p.b0p) + i * kH, A2,
+                                   walk);
+        layer<kH, kBuf, kAdd>(A2, kH, (pre ? p.b1 : p.b1p) + i * kH, X, walk);
+      }
+      lin_out_any<kH>(X, p, row0, walk);
+    } else {
+      for (int blk = 0; blk < p.n_post; ++blk) {
+        layer<kH, kReluBuf, kRelu>(X, kH, p.b0p + blk * kH, A2, walk);
+        layer<kH, kBuf, kAdd>(A2, kH, p.b1p + blk * kH, X, walk);
+      }
+      lin_out_any<kH>(X, p, row0, walk);
     }
   }
   // no CTA leaves while a peer may still copy into it or arrive on it
@@ -548,25 +777,28 @@ int encode_2d(CUtensorMap* map, const void* ptr, uint64_t cols, uint64_t rows,
 template <int kH>
 int launch(const Params& p, const void* latent, const void* wpack,
            cudaStream_t stream) {
-  // the packed weights as rows of 256 elements (512 B): one stage is H / 16
-  // rows, each CTA of a cluster copies (and multicasts) H / 16 / kCluster
-  const int stages = round_up(p.d_in, kBK) / kBK +
-                     p.n_pre * (p.d_latent / kBK + 2 * kH / kBK);
-  CUtensorMap w_map, lat_map;
-  int err = encode_2d(&w_map, wpack, 256, (uint64_t)stages * (kH / 16), 256,
+  // the packed weights of the walk as rows of 256 elements (512 B): one
+  // stage is H / 16 rows, each CTA of a cluster copies (and multicasts)
+  // H / 16 / kCluster
+  CUtensorMap w_map, lat_map{};
+  int err = encode_2d(&w_map, wpack, 256,
+                      (uint64_t)walk_stages<kH>(p) * (kH / 16), 256,
                       kH / 16 / kCluster);
   // the latent as a (n_rows, d_latent) tensor, boxes of 64 rows x 16
-  // columns
-  if (err == 0)
+  // columns (mode 2 has none)
+  if (err == 0 && p.mode != 2)
     err = encode_2d(&lat_map, latent, p.d_latent, p.n_rows, kBK, kRows);
   if (err != 0) return err;
   constexpr int smem = smem_bytes<kH>();
+  auto* kernel = p.mode == 0   ? field_mlp_tc<kH, kWhole>
+                 : p.mode == 2 ? field_mlp_tc<kH, kPostHalf>
+                               : field_mlp_tc<kH, kPreHalf>;
   err = (int)cudaFuncSetAttribute(
-      pre_combine_tc<kH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
   const int tiles = (p.n_rows + kRows - 1) / kRows;
   const int grid = round_up(tiles, kCluster);  // whole clusters
-  pre_combine_tc<kH><<<grid, kThreads, smem, stream>>>(w_map, lat_map, p);
+  kernel<<<grid, kThreads, smem, stream>>>(w_map, lat_map, p);
   return (int)cudaGetLastError();
 }
 
@@ -581,36 +813,51 @@ int field_mlp_tc_k_step() { return kBK; }
 int field_mlp_tc_stages() { return kStages; }
 int field_mlp_tc_cluster() { return kCluster; }
 int field_mlp_tc_row_pad() { return kPad; }
+// lin_out's width for d_out (0: none); the packing pads w_out to it
+int field_mlp_tc_out_width(int d_out) { return out_width(d_out); }
 
 const char* field_mlp_tc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches mode 1 (pre_combine_pe) or 3 (pre_combine) in bf16 on `stream`;
-// returns the CUDA error code (0 = ok).  wpack holds the weights packed by
-// ops/field_mlp.py::pack_tc; pointers a mode does not use may be null.
+// Launches one mode (0 full_pe, 1 pre_combine_pe, 2 post_combine, 3
+// pre_combine) in bf16 on `stream`; returns the CUDA error code (0 = ok).
+// wpack holds the weights packed by ops/field_mlp.py::pack_tc, from the
+// stage the mode's walk starts at (mode 2: the first post block's);
+// pointers a mode does not use may be null.
 int field_mlp_tc_launch(int mode, const void* base, const void* zfeat,
-                        const void* latent, const void* wpack,
+                        const void* latent, const void* h, const void* wpack,
                         const void* b_in, const void* bz, const void* b0,
-                        const void* b1, void* out, int n_rows, int d_in,
-                        int d_latent, int hidden, int n_pre, int num_freqs,
-                        float freq_factor, void* stream) {
-  if ((mode != 1 && mode != 3) || d_latent % kBK != 0 || d_latent <= 0 ||
-      round_up(d_in, kBK) > hidden)
+                        const void* b1, const void* b0p, const void* b1p,
+                        const void* b_out, void* out, int n_rows, int d_in,
+                        int d_latent, int hidden, int n_pre, int n_post,
+                        int d_out, int num_freqs, float freq_factor,
+                        void* stream) {
+  const bool pre = mode != 2, post = mode == 0 || mode == 2;
+  if (mode < 0 || mode > 3 ||
+      (pre && (d_latent % kBK != 0 || d_latent <= 0 ||
+               round_up(d_in, kBK) > hidden)) ||
+      (post && (out_width(d_out) == 0 || out_width(d_out) > hidden)))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   Params p;
   p.base = static_cast<const float*>(base);
   p.zfeat = static_cast<const bf16*>(zfeat);
+  p.h = static_cast<const bf16*>(h);
   p.b_in = static_cast<const float*>(b_in);
   p.bz = static_cast<const float*>(bz);
   p.b0 = static_cast<const float*>(b0);
   p.b1 = static_cast<const float*>(b1);
-  p.out = static_cast<bf16*>(out);
+  p.b0p = static_cast<const float*>(b0p);
+  p.b1p = static_cast<const float*>(b1p);
+  p.b_out = static_cast<const float*>(b_out);
+  p.out = out;
   p.n_rows = n_rows;
-  p.d_in = d_in;
-  p.d_latent = d_latent;
-  p.n_pre = n_pre;
+  p.d_in = pre ? d_in : 0;
+  p.d_latent = pre ? d_latent : 0;
+  p.n_pre = pre ? n_pre : 0;
+  p.n_post = post ? n_post : 0;
+  p.d_out = d_out;
   p.num_freqs = num_freqs;
   p.mode = mode;
   p.freq_factor = freq_factor;

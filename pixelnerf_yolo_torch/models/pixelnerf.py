@@ -192,8 +192,9 @@ class PixelNeRF(nn.Module):
 
     def _can_fuse(self, mlp, ns: int, mode: str = "full_pe") -> bool:
         """Whether the fused kernels apply: the conditions of the JAX
-        package's ``_can_fuse``, with the width check of the kernel that
-        starts the route (``mode``) in place of the TPU's VMEM budget."""
+        package's ``_can_fuse``, with the width checks of the kernel that
+        starts the route (``mode``) and of post_combine, which may end it,
+        in place of the TPU's VMEM budget."""
         enabled = self.use_fused_mlp
         if isinstance(enabled, str):
             enabled = enabled.lower() in ("auto", "true", "1", "yes", "on")
@@ -205,8 +206,9 @@ class PixelNeRF(nn.Module):
             and mlp.d_latent > 0
             and self.d_in > 0
             and (ns == 1 or mlp.combine_layer < mlp.n_blocks)
-            and field_mlp.fits(self.d_in, mlp.d_latent, mlp.d_hidden,
-                               self.compute_dtype, mode)
+            and all(field_mlp.fits(self.d_in, mlp.d_latent, mlp.d_hidden,
+                                   self.compute_dtype, m, mlp.d_out)
+                    for m in (mode, "post_combine"))
         )
 
     def _pe_fusible(self) -> bool:

@@ -13,11 +13,10 @@ The first three carry models whose positional encoding fits in the kernel
 (``fused_pe_forward``); the last carries the others (``fused_forward``,
 e.g. ``use_code_viewdirs = True``), followed by ``post_combine``.
 
-Two variants (``variant``): bf16 ``pre_combine_pe`` and ``pre_combine``
-run on the tensor cores (csrc/field_mlp_tc.cu: wgmma, weights streamed
-through a ring of TMA copies, packed once by ``pack_tc``); f32, and
-``full_pe`` and ``post_combine`` in either dtype, run on the CUDA cores
-(csrc/field_mlp.cu).  Both are CUDA C++ for sm_90a.
+Two variants (``variant``): every bf16 mode runs on the tensor cores
+(csrc/field_mlp_tc.cu: wgmma, weights streamed through a ring of TMA
+copies, packed once by ``pack_tc``); every f32 mode on the CUDA cores
+(csrc/field_mlp.cu, f32 only).  Both are CUDA C++ for sm_90a.
 
 Each wrapper runs its plain twin (``*_plain``: the same function with the
 same rounding points, in plain torch) when its tensors lie on the CPU,
@@ -70,10 +69,10 @@ TC_K_STEP = 16
 TC_STAGES = 5
 TC_CLUSTER = 2
 TC_ROW_PAD = 8
-TC_MODES = ("pre_combine_pe", "pre_combine")
-
 MODES = {"full_pe": 0, "pre_combine_pe": 1, "post_combine": 2,
          "pre_combine": 3}
+# lin_out widths of the tensor-core kernel (one instantiation each)
+TC_OUT_WIDTHS = (8, 16, 24, 32, 64, 128, 256)
 launches = {name: 0 for name in MODES}
 
 
@@ -103,10 +102,11 @@ class StackedWeights:
     b1p: torch.Tensor
     w_out: torch.Tensor
     b_out: torch.Tensor
-    # the pre-combine weights packed for the tensor-core variant, made at
-    # its first launch (``tc_weights``); not a kernel argument of its own
-    tc: torch.Tensor | None = dataclasses.field(default=None, repr=False,
-                                                compare=False)
+    # the weights packed for the tensor-core variant, made at its first
+    # launch (``tc_weights``); not a kernel argument of its own, and not
+    # carried over by ``dataclasses.replace``
+    tc: torch.Tensor | None = dataclasses.field(default=None, init=False,
+                                                repr=False, compare=False)
 
     @property
     def hidden(self) -> int:
@@ -161,19 +161,69 @@ def _pack_layer(m: torch.Tensor) -> torch.Tensor:
         .reshape(-1)
 
 
+def tc_out_width(d_out: int) -> int | None:
+    """lin_out's width Nout in the tensor-core kernel: d_out rounded up to
+    a multiple of 8 up to 32, then to 64, 128 or 256 (8 for NeRF's 4, 24
+    for YOLO's 21); None when no width takes d_out."""
+    return next((n for n in TC_OUT_WIDTHS if 0 < d_out <= n), None)
+
+
+def tc_out_stages(hidden: int, nout: int) -> int:
+    """Ring stages of lin_out: its hidden / 16 K slices of 16 x nout,
+    hidden // nout to a stage (1 for NeRF, 2 for YOLO at hidden 512)."""
+    return -(-(hidden // TC_K_STEP) // (hidden // nout))
+
+
+def _pack_out(w_out: torch.Tensor, nout: int) -> torch.Tensor:
+    """(H, d_out) -> whole ring stages: w_out zero-padded to nout columns,
+    cut in 16-deep K slices (``_pack_layer``'s layout); slice j sits in
+    stage j // (H // nout) at (j % (H // nout)) * 16 * nout, and the rest
+    of each stage is zeros."""
+    H, d_out = w_out.shape
+    per = H // nout
+    n_stages = tc_out_stages(H, nout)
+    m = w_out.new_zeros((H, nout))
+    m[:, :d_out] = w_out
+    slices = w_out.new_zeros((n_stages * per, TC_K_STEP * nout))
+    slices[:H // TC_K_STEP] = _pack_layer(m).reshape(H // TC_K_STEP, -1)
+    stages = w_out.new_zeros((n_stages, TC_K_STEP * H))
+    stages[:, :per * TC_K_STEP * nout] = slices.reshape(n_stages, -1)
+    return stages.reshape(-1)
+
+
+def _pad_rows(m: torch.Tensor) -> torch.Tensor:
+    """(K, H) -> (K rounded up to the K step, H), zero rows appended."""
+    k = m.shape[0]
+    return torch.cat([m, m.new_zeros((-k % TC_K_STEP, m.shape[1]))])
+
+
+def tc_stages(w: StackedWeights) -> tuple[int, int, int]:
+    """Ring stages of ``pack_tc(w)``'s three parts: lin_in and the
+    pre-combine blocks, the post-combine blocks, lin_out (0 when the
+    tensor-core kernel takes no lin_out of this width)."""
+    H, k = w.hidden, TC_K_STEP
+    pre = (-(-w.w_in.shape[0] // k)
+           + w.wz.shape[0] * (-(-w.wz.shape[1] // k) + 2 * H // k))
+    nout = tc_out_width(w.w_out.shape[1])
+    out = tc_out_stages(H, nout) if nout is not None and nout <= H else 0
+    return pre, w.w0p.shape[0] * 2 * H // k, out
+
+
 def pack_tc(w: StackedWeights) -> torch.Tensor:
-    """The pre-combine weights as one flat stream of 16-deep K slices in the
-    order the tensor-core kernel consumes them: lin_in (rows zero-padded
-    to a multiple of 16), then per block lin_z, fc_0, fc_1.  One slice is
-    one ring stage (16 * H elements)."""
-    d_in, H = w.w_in.shape
-    dz = -(-d_in // TC_K_STEP) * TC_K_STEP
-    w_in = torch.zeros((dz, H), dtype=w.w_in.dtype, device=w.w_in.device)
-    w_in[:d_in] = w.w_in
-    parts = [_pack_layer(w_in)]
+    """The weights as one flat stream of 16-deep K slices in the order the
+    tensor-core kernel consumes them: lin_in and per pre block lin_z (rows
+    zero-padded to a multiple of 16), fc_0, fc_1; per post block fc_0,
+    fc_1; lin_out (``_pack_out``, when ``tc_stages`` gives it stages).  A
+    ring stage is 16 * H elements; post_combine starts at stage
+    ``tc_stages(w)[0]``."""
+    parts = [_pack_layer(_pad_rows(w.w_in))]
     for i in range(w.wz.shape[0]):
-        parts += [_pack_layer(w.wz[i]), _pack_layer(w.w0[i]),
+        parts += [_pack_layer(_pad_rows(w.wz[i])), _pack_layer(w.w0[i]),
                   _pack_layer(w.w1[i])]
+    for i in range(w.w0p.shape[0]):
+        parts += [_pack_layer(w.w0p[i]), _pack_layer(w.w1p[i])]
+    if tc_stages(w)[2]:
+        parts.append(_pack_out(w.w_out, tc_out_width(w.w_out.shape[1])))
     return torch.cat(parts).contiguous()
 
 
@@ -252,11 +302,8 @@ def post_combine_plain(h, w: StackedWeights) -> torch.Tensor:
 
 def variant(mode: str, compute_dtype) -> str:
     """Which kernel a launch of ``mode`` takes: "tensor_core"
-    (field_mlp_tc.cu) for bf16 pre_combine_pe and pre_combine,
-    "cuda_core" (field_mlp.cu) otherwise."""
-    if mode in TC_MODES and compute_dtype == torch.bfloat16:
-        return "tensor_core"
-    return "cuda_core"
+    (field_mlp_tc.cu) in bf16, "cuda_core" (field_mlp.cu) in f32."""
+    return "tensor_core" if compute_dtype == torch.bfloat16 else "cuda_core"
 
 
 def smem_bytes_tc(hidden: int) -> int:
@@ -277,20 +324,27 @@ def smem_bytes(mode: str, elt_bytes: int, hidden: int, d_latent: int) -> int:
 
 
 def fits(d_in: int, d_latent: int, hidden: int, compute_dtype,
-         mode: str = "full_pe") -> bool:
+         mode: str = "full_pe", d_out: int = 4) -> bool:
     """Whether the kernel of ``mode`` takes these widths: hidden a multiple
     of 64 up to 512 and the block's tiles within the shared-memory limit;
     before the combine (every mode but post_combine) also the z-features,
     rounded up to the weight tile (the tensor-core variant: its K step),
     no wider than hidden and d_latent a multiple of the same.  The
-    tensor-core variant's shared memory does not depend on d_latent."""
+    tensor-core variant's shared memory depends on neither d_latent nor
+    the mode; its lin_out (full_pe, post_combine) needs a width for d_out
+    (``tc_out_width``: d_out <= 256) no wider than hidden."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return False
     if variant(mode, compute_dtype) == "tensor_core":
-        return (hidden % 64 == 0 and 0 < hidden <= MAX_HIDDEN
-                and smem_bytes_tc(hidden) <= SMEM_LIMIT
-                and -(-d_in // TC_K_STEP) * TC_K_STEP <= hidden
-                and d_latent > 0 and d_latent % TC_K_STEP == 0)
+        ok = (hidden % 64 == 0 and 0 < hidden <= MAX_HIDDEN
+              and smem_bytes_tc(hidden) <= SMEM_LIMIT)
+        if mode != "post_combine":
+            ok = ok and (-(-d_in // TC_K_STEP) * TC_K_STEP <= hidden
+                         and d_latent > 0 and d_latent % TC_K_STEP == 0)
+        if mode in ("full_pe", "post_combine"):
+            nout = tc_out_width(d_out)
+            ok = ok and nout is not None and nout <= hidden
+        return ok
     elt = torch.empty((), dtype=compute_dtype).element_size()
     ok = (
         hidden % COLUMN_LANES == 0
@@ -382,22 +436,34 @@ def load_library() -> dict:
         if (lib.field_mlp_rows_per_block(), lib.field_mlp_weight_tile_rows()) \
                 != (ROWS_PER_BLOCK, WEIGHT_TILE_ROWS):
             raise KernelBuildError("kernel tiling constants disagree")
-        tc = ctypes.CDLL(str(paths["field_mlp_tc"]))
-        tc.field_mlp_tc_launch.argtypes = (
-            [ci] + [vp] * 9 + [ci] * 6 + [ctypes.c_float, vp]
-        )
-        tc.field_mlp_tc_launch.restype = ci
-        tc.field_mlp_tc_error_string.argtypes = [ci]
-        tc.field_mlp_tc_error_string.restype = ctypes.c_char_p
+        tc = bind_tc(paths["field_mlp_tc"])
         consts = ("rows_per_cta", "k_step", "stages", "cluster", "row_pad")
-        for c in consts:
-            getattr(tc, f"field_mlp_tc_{c}").restype = ci
         got = tuple(getattr(tc, f"field_mlp_tc_{c}")() for c in consts)
         if got != (TC_ROWS, TC_K_STEP, TC_STAGES, TC_CLUSTER, TC_ROW_PAD):
             raise KernelBuildError(
                 f"tensor-core kernel tiling constants disagree: {got}")
+        if any(tc.field_mlp_tc_out_width(d) != (tc_out_width(d) or 0)
+               for d in range(TC_OUT_WIDTHS[-1] + 2)):
+            raise KernelBuildError("tensor-core lin_out widths disagree")
         _libraries.update(field_mlp=lib, field_mlp_tc=tc)
     return _libraries
+
+
+def bind_tc(path) -> ctypes.CDLL:
+    """Load a build of field_mlp_tc.cu and declare its C interface."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    tc = ctypes.CDLL(str(path))
+    tc.field_mlp_tc_launch.argtypes = (
+        [ci] + [vp] * 13 + [ci] * 8 + [ctypes.c_float, vp]
+    )
+    tc.field_mlp_tc_launch.restype = ci
+    tc.field_mlp_tc_error_string.argtypes = [ci]
+    tc.field_mlp_tc_error_string.restype = ctypes.c_char_p
+    for c in ("rows_per_cta", "k_step", "stages", "cluster", "row_pad"):
+        getattr(tc, f"field_mlp_tc_{c}").restype = ci
+    tc.field_mlp_tc_out_width.argtypes = [ci]
+    tc.field_mlp_tc_out_width.restype = ci
+    return tc
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
@@ -441,10 +507,11 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
             freq_factor=0.0):
     if device.type != "cuda":
         raise ValueError(f"field MLP kernels run on CUDA tensors, got {device}")
-    if not fits(d_in, d_latent, w.hidden, cdt, mode):
+    d_out = w.w_out.shape[1]
+    if not fits(d_in, d_latent, w.hidden, cdt, mode, d_out):
         raise ValueError(
             f"field MLP kernel does not take hidden={w.hidden} "
-            f"d_latent={d_latent} d_in={d_in} dtype={cdt}"
+            f"d_latent={d_latent} d_in={d_in} d_out={d_out} dtype={cdt}"
         )
     libs = load_library()
 
@@ -456,14 +523,21 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
     stream = torch.cuda.current_stream(device).cuda_stream
     if variant(mode, cdt) == "tensor_core":
         lib, name = libs["field_mlp_tc"], "field_mlp_tc"
-        if latent.data_ptr() % 16:
+        if latent is not None and latent.data_ptr() % 16:
             raise ValueError("latent must start on a 16-byte boundary (TMA)")
+        if h is not None and h.data_ptr() % 16:
+            raise ValueError("h must start on a 16-byte boundary")
         packed = tc_weights(w)
+        wpack = packed.data_ptr()
+        if mode == "post_combine":  # the walk starts at the first post block
+            wpack += (tc_stages(w)[0] * TC_K_STEP * w.hidden
+                      * packed.element_size())
         with torch.cuda.device(device):
             err = lib.field_mlp_tc_launch(
-                MODES[mode], ptr(base), ptr(zfeat), ptr(latent), ptr(packed),
-                ptr(w.b_in), ptr(w.bz), ptr(w.b0), ptr(w.b1), ptr(out),
-                n_rows, d_in, d_latent, w.hidden, n_pre, num_freqs,
+                MODES[mode], ptr(base), ptr(zfeat), ptr(latent), ptr(h),
+                wpack, ptr(w.b_in), ptr(w.bz), ptr(w.b0), ptr(w.b1),
+                ptr(w.b0p), ptr(w.b1p), ptr(w.b_out), ptr(out), n_rows, d_in,
+                d_latent, w.hidden, n_pre, n_post, d_out, num_freqs,
                 float(freq_factor), stream,
             )
         error_string = lib.field_mlp_tc_error_string
@@ -474,8 +548,8 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
                 MODES[mode], int(cdt == torch.bfloat16), ptr(base),
                 ptr(zfeat), ptr(latent), ptr(h),
                 *(ptr(getattr(w, f)) for f in WEIGHT_NAMES), ptr(out),
-                n_rows, d_in, d_latent, w.hidden, n_pre, n_post,
-                w.w_out.shape[1], num_freqs, float(freq_factor), stream,
+                n_rows, d_in, d_latent, w.hidden, n_pre, n_post, d_out,
+                num_freqs, float(freq_factor), stream,
             )
         error_string = lib.field_mlp_error_string
     if err != 0:

@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Time the port's field-MLP kernels (and a render) of checkouts in turns.
+
+    python3 scripts/bench_ab.py ROOT [ROOT ...] [--kinds K1,K2] [--reps N]
+        [--dtype bfloat16|float32] [--fine] [--render NS]
+
+(on a machine with an NVIDIA GPU).  Each ROOT is a checkout of this
+repository (e.g. the parent commit unpacked with ``git archive``, then
+this tree, in the order parent, change, change, parent).  For each ROOT,
+in the order given, a fresh process imports that checkout's
+``pixelnerf_yolo_torch`` and ``chip_smoke.py``, builds its kernels into
+its own ``_build/``, checks each kernel of ``--kinds`` against its plain
+twin and times it at the rows of ``chip_smoke.py``'s phase 7 (the mean
+of ``--reps`` launches after a warm-up) in ``--dtype``: NeRF widths, the
+YOLO widths for ``pre_combine_pe`` and ``post_combine`` (bf16 only: no
+f32 kernel takes them), and with ``--fine`` also the fine pass's rows
+(1.5x).  ``--render NS`` then times ``chip_smoke.py``'s NeRF flagship
+render at NS views through the kernels, twice (the first call in the
+process, then a second).  The last lines are the card's name and power
+limit and one JSON object with every time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+# (kind, widths, rows): phase 7's timed rows (the coarse pass's)
+CASES = [("full_pe", "NERF", 1_048_576), ("pre_combine_pe", "NERF", 1_048_576),
+         ("post_combine", "NERF", 524_288), ("pre_combine", "VIEWDIRS",
+                                             1_048_576),
+         ("pre_combine_pe", "YOLO", 572_160), ("post_combine", "YOLO",
+                                                190_720)]
+
+
+def child(root: str, kinds: list[str], reps: int, dtype: str, fine: bool,
+          render_ns: int) -> dict:
+    """Time the kernels of one checkout; runs in its own process."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import chip_smoke as cs
+    from pixelnerf_yolo_torch.nn.code import PositionalEncoding
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fm.load_library()
+    dev, cdt = torch.device("cuda"), getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(1)
+    code = PositionalEncoding(6, 3, 1.5, True).to(dev)
+    code_vd = PositionalEncoding(6, 6, 1.5, True).to(dev)
+    out = {}
+    cases = [c for c in CASES if c[0] in kinds
+             and (dtype == "bfloat16" or c[1] != "YOLO")]
+    if fine:
+        cases += [(k, wd, rows * 3 // 2) for k, wd, rows in cases
+                  if wd != "YOLO"]
+    for kind, widths, rows in cases:
+        spec = getattr(cs, widths)
+        w = fm.stack_params(cs.field_mlp_of(spec, cdt, dev), cdt)
+        base = torch.rand((rows, 6), generator=g, device=dev) * 2 - 1
+        lat = torch.randn((rows, spec["dL"]), generator=g, device=dev).to(cdt)
+        if kind == "post_combine":
+            args = (fm.pre_combine_pe_plain(base, lat, w, code).contiguous(),
+                    w)
+        elif kind == "pre_combine":
+            args = (code_vd(base).to(cdt).contiguous(), lat, w)
+        else:
+            args = (base, lat, w, code)
+        kernel, plain = getattr(fm, kind), getattr(fm, kind + "_plain")
+        ref = plain(*args).float()
+        err = (kernel(*args).float() - ref).abs().max().item()
+        tol = cs.KERNEL_TOL[dtype] * max(1.0, ref.abs().max().item())
+        if not err <= tol:
+            raise RuntimeError(f"{kind} {widths}: error {err} over {tol}")
+        ms = cs.time_ms(lambda: kernel(*args), reps)
+        out[f"{kind}_{widths.lower()}_{rows}"] = ms
+        print(f"{root} {kind} {widths} rows={rows}: {ms:.3f} ms "
+              f"({fm.variant(kind, cdt)}, max_abs_err {err:.3e})", flush=True)
+        del args, ref, base, lat
+        torch.cuda.empty_cache()
+    if render_ns:
+        models = cs.build_models(dev)
+        rays = 65536 if render_ns == 1 else 16384
+        for i in range(2):
+            _, sec = cs.render(models, render_ns, dtype, rays, dev, "auto")
+            out[f"render_ns{render_ns}_{i}"] = sec
+            print(f"{root} render NeRF NS={render_ns} {dtype} rays={rays} "
+                  f"call {i}: {sec:.3f} s", flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--kinds", default="full_pe,pre_combine_pe,post_combine,"
+                    "pre_combine")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--fine", action="store_true")
+    ap.add_argument("--render", type=int, default=0, metavar="NS")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    kinds = a.kinds.split(",")
+    if a.child:
+        print("RESULT " + json.dumps(child(a.roots[0], kinds, a.reps,
+                                           a.dtype, a.fine, a.render)))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_ab: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    runs = []
+    for root in a.roots:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root, "--child",
+             "--kinds", a.kinds, "--reps", str(a.reps), "--dtype", a.dtype,
+             "--render", str(a.render)] + (["--fine"] if a.fine else []),
+            capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            return 1
+        result = next(line for line in proc.stdout.splitlines()
+                      if line.startswith("RESULT "))
+        runs.append({"root": root, "ms": json.loads(result[7:])})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

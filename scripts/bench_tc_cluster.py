@@ -16,7 +16,6 @@ JSON object with the times.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
@@ -32,18 +31,6 @@ def build(fm, cluster: int):
         [fm._nvcc(), *fm.NVCC_FLAGS, f"-DFIELD_MLP_TC_CLUSTER={cluster}",
          "-o", str(out), str(fm.SOURCES["field_mlp_tc"])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
-
-
-def load(path) -> ctypes.CDLL:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib = ctypes.CDLL(str(path))
-    lib.field_mlp_tc_launch.argtypes = (
-        [ci] + [vp] * 9 + [ci] * 6 + [ctypes.c_float, vp])
-    lib.field_mlp_tc_launch.restype = ci
-    lib.field_mlp_tc_error_string.argtypes = [ci]
-    lib.field_mlp_tc_error_string.restype = ctypes.c_char_p
-    lib.field_mlp_tc_cluster.restype = ci
-    return lib
 
 
 def main() -> int:
@@ -67,7 +54,7 @@ def main() -> int:
         if proc.returncode != 0:
             print(log, file=sys.stderr)
             return 1
-        libs[c] = load(out)
+        libs[c] = fm.bind_tc(out)
         assert libs[c].field_mlp_tc_cluster() == c
     dev, cdt = torch.device("cuda"), torch.bfloat16
     code = PositionalEncoding(6, 3, 1.5, True).to(dev)

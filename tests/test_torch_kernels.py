@@ -205,11 +205,13 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         fm.pre_combine(base, lat, w)  # 6 columns, w_in takes 42
 
 
-# -- the tensor-core variant (bf16 pre_combine_pe and pre_combine) -----------
+# -- the tensor-core variant (every bf16 mode) --------------------------------
 
 # (mode, d_in, d_latent, hidden): NeRF, use_code_viewdirs and YOLO widths,
 # then narrow ones (m64n32k16 in place of m64n256k16; 192 an odd count of
-# 32-column chunks per warpgroup)
+# 32-column chunks per warpgroup); full_pe and post_combine at the NeRF
+# widths, narrow ones and H = 64 (lin_out's 24 columns in 2 stages),
+# post_combine also behind the YOLO pre blocks (its walk starts further in)
 TC_WIDTHS = {
     "nerf": ("pre_combine_pe", 42, 512, 512),
     "viewdirs": ("pre_combine", 78, 512, 512),
@@ -217,46 +219,111 @@ TC_WIDTHS = {
     "narrow": ("pre_combine_pe", 42, 48, 128),
     "narrow_z": ("pre_combine", 78, 64, 192),
     "h64": ("pre_combine_pe", 42, 64, 64),
+    "full_nerf": ("full_pe", 42, 512, 512),
+    "full_narrow": ("full_pe", 42, 48, 128),
+    "full_h64": ("full_pe", 42, 64, 64),
+    "post_nerf": ("post_combine", 42, 512, 512),
+    "post_yolo": ("post_combine", 42, 1792, 512),
+    "post_narrow": ("post_combine", 42, 48, 192),
 }
+TC_ROWS_CHECKED = (1, 63, 64, 65, 1037, 40013)
+# (widths, n_pre, n_post, d_out, rows): modes 1 and 3 with n_pre 0, 1, 3;
+# modes 0 and 2 also with n_post 0, 1, 2 and d_out 4 (NeRF), 21 (YOLO)
+TC_CASES = [
+    (wid, n_pre, n_post, d_out, rows)
+    for wid, (mode, *_) in TC_WIDTHS.items()
+    for n_pre in (0, 1, 3)
+    for n_post in ((0, 1, 2) if mode in ("full_pe", "post_combine") else (2,))
+    for d_out in ((4, 21) if mode in ("full_pe", "post_combine") else (4,))
+    for rows in TC_ROWS_CHECKED
+]
 
 
-def _tc_case(device, widths, n_pre, rows):
-    mode, d_in, d_latent, hidden = TC_WIDTHS[widths]
+def _tc_case(device, widths, n_pre, rows, n_post=2, d_out=4):
+    """widths: a key of TC_WIDTHS or a (mode, d_in, d_latent, hidden)."""
+    mode, d_in, d_latent, hidden = TC_WIDTHS.get(widths, widths)
     dtype = torch.bfloat16
-    w = fm.stack_params(_mlp(hidden, d_latent, dtype, d_in=d_in).to(device),
-                        dtype)
-    # the first n_pre blocks (n_pre = 0: lin_in alone)
-    w = dataclasses.replace(
-        w, **{k: getattr(w, k)[:n_pre].contiguous()
-              for k in ("wz", "bz", "w0", "b0", "w1", "b1")})
+    w = fm.stack_params(_mlp(hidden, d_latent, dtype, d_in=d_in,
+                             d_out=d_out).to(device), dtype)
+    # the first n_pre pre blocks (n_pre = 0: lin_in alone) and the first
+    # n_post post blocks (n_post = 0: lin_out alone)
+    cut = {k: getattr(w, k)[:n_pre].contiguous()
+           for k in ("wz", "bz", "w0", "b0", "w1", "b1")}
+    cut.update({k: getattr(w, k)[:n_post].contiguous()
+                for k in ("w0p", "b0p", "w1p", "b1p")})
+    w = dataclasses.replace(w, **cut)
     base, lat = _inputs(rows, d_latent, dtype, device)
     code = PositionalEncoding(6, 3, 1.5, True).to(device)
-    args = ((base, lat, w, code) if mode == "pre_combine_pe"
-            else (_zfeat(rows, d_in, dtype, device), lat, w))
+    if mode in ("pre_combine_pe", "full_pe"):
+        args = (base, lat, w, code)
+    elif mode == "pre_combine":
+        args = (_zfeat(rows, d_in, dtype, device), lat, w)
+    else:
+        args = (fm.pre_combine_pe_plain(base, lat, w, code).contiguous(), w)
     return mode, args
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 63, 64, 65, 1037, 40013])
-@pytest.mark.parametrize("n_pre", [0, 1, 3])
-@pytest.mark.parametrize("widths", list(TC_WIDTHS))
-def test_tc_kernel_matches_twin(cuda_device, widths, n_pre, rows):
-    """The wgmma kernel against its twin: lin_in alone, one and three
-    blocks; ragged rows (1,037 rows are 17 row tiles: a cluster with a CTA
-    past the last row)."""
-    mode, args = _tc_case(cuda_device, widths, n_pre, rows)
+@pytest.mark.parametrize("widths,n_pre,n_post,d_out,rows", TC_CASES)
+def test_tc_kernel_matches_twin(cuda_device, widths, n_pre, n_post, d_out,
+                                rows):
+    """The wgmma kernel against its twin: lin_in alone, one and three pre
+    blocks; lin_out alone, one and two post blocks; ragged rows (1,037
+    rows are 17 row tiles: a cluster with a CTA past the last row)."""
+    mode, args = _tc_case(cuda_device, widths, n_pre, rows, n_post, d_out)
     assert fm.variant(mode, torch.bfloat16) == "tensor_core"
     fm.reset_launches()
     with torch.no_grad():
         got = getattr(fm, mode)(*args)
         ref = getattr(fm, mode + "_plain")(*args)
     torch.cuda.synchronize()
-    assert fm.launches[mode] == 1
-    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert fm.launches[mode] == 1 and sum(fm.launches.values()) == 1
+    assert got.dtype == ref.dtype and got.shape == ref.shape
     assert bool(torch.isfinite(got).all())
     scale = max(1.0, ref.float().abs().max().item())
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= TOL[torch.bfloat16] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [512, 256])
+@pytest.mark.parametrize("d_out", [1, 8, 9, 32, 33, 64, 100, 200, 256])
+@pytest.mark.parametrize("mode", ["full_pe", "post_combine"])
+def test_tc_lin_out_widths(cuda_device, mode, d_out, hidden):
+    """Every lin_out width of the tensor-core kernel (Nout 8 to 256: the
+    two warpgroups split its 8-column groups, one of them empty at Nout 8)
+    against the twin."""
+    _, args = _tc_case(cuda_device, (mode, 42, 64, hidden), 1, 1037,
+                       n_post=1, d_out=d_out)
+    fm.reset_launches()
+    with torch.no_grad():
+        got = getattr(fm, mode)(*args)
+        ref = getattr(fm, mode + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert fm.launches[mode] == 1
+    assert got.shape == ref.shape == (1037, d_out)
+    scale = max(1.0, ref.abs().max().item())
+    err = (got - ref).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_core_library_refuses_bf16(cuda_device):
+    """field_mlp.cu is f32 only: a bf16 launch of any mode is refused."""
+    lib = fm.load_library()["field_mlp"]
+    for mode in fm.MODES.values():
+        err = lib.field_mlp_launch(mode, 1, *([None] * 19), 64, 42, 64, 64,
+                                   1, 1, 4, 6, 1.5, None)
+        assert err != 0
+
+
+@pytest.mark.cuda
+def test_tc_kernel_raises_on_unaligned_h(cuda_device):
+    mode, (h, w) = _tc_case(cuda_device, "post_narrow", 1, 9)
+    flat = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda_device)
+    shifted = flat[1:].view(h.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fm.post_combine(shifted, w)
 
 
 @pytest.mark.cuda

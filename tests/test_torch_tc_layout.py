@@ -31,12 +31,12 @@ def _unpack_layer(flat, K, H):
 
 
 def unpack_tc(packed, d_in, d_latent, hidden, n_pre):
-    """Inverse of ``field_mlp.pack_tc``: (w_in, wz, w0, w1) as
-    ``stack_params`` gives them."""
+    """Inverse of ``field_mlp.pack_tc`` before the combine: (w_in, wz, w0,
+    w1) as ``stack_params`` gives them."""
     dz = -(-d_in // fm.TC_K_STEP) * fm.TC_K_STEP
     sizes = [dz * hidden] + [d_latent * hidden, hidden * hidden,
                              hidden * hidden] * n_pre
-    parts = list(torch.split(packed, sizes))
+    parts = list(torch.split(packed[:sum(sizes)], sizes))
     blocks = [[_unpack_layer(parts[1 + 3 * i + j], K, hidden)
                for j, K in enumerate((d_latent, hidden, hidden))]
               for i in range(n_pre)]
@@ -44,10 +44,31 @@ def unpack_tc(packed, d_in, d_latent, hidden, n_pre):
     return (_unpack_layer(parts[0], dz, hidden)[:d_in], *stacks)
 
 
-def _weights(d_in, d_latent, hidden, dtype=torch.bfloat16, seed=0):
+def unpack_tc_post(packed, w):
+    """Inverse of ``field_mlp.pack_tc`` after the combine, from the stage
+    ``tc_stages(w)[0]`` on: (w0p, w1p, w_out padded to Nout columns)."""
+    H = w.hidden
+    pre, post, out = fm.tc_stages(w)
+    stage = fm.TC_K_STEP * H
+    body = packed[pre * stage:]
+    assert body.numel() == (post + out) * stage
+    layers = [_unpack_layer(x, H, H)
+              for x in body[:post * stage].reshape(-1, H * H)]
+    w0p = torch.stack(layers[0::2]) if layers else w.w0p
+    w1p = torch.stack(layers[1::2]) if layers else w.w1p
+    nout = fm.tc_out_width(w.w_out.shape[1])
+    per = H // nout
+    slices = body[post * stage:].reshape(out, stage)[:, :per * 16 * nout] \
+        .reshape(out * per, 16 * nout)[:H // 16]
+    return w0p, w1p, _unpack_layer(slices.reshape(-1), H, nout)
+
+
+def _weights(d_in, d_latent, hidden, dtype=torch.bfloat16, seed=0, d_out=4,
+             combine_layer=3):
     g = torch.Generator().manual_seed(seed)
-    mlp = ResnetFC(d_in, d_out=4, n_blocks=5, d_latent=d_latent,
-                   d_hidden=hidden, combine_layer=3, dtype=dtype, generator=g)
+    mlp = ResnetFC(d_in, d_out=d_out, n_blocks=5, d_latent=d_latent,
+                   d_hidden=hidden, combine_layer=combine_layer, dtype=dtype,
+                   generator=g)
     with torch.no_grad():
         for name, p in mlp.named_parameters():
             if ".fc_1." in name or name.endswith("bias"):
@@ -63,7 +84,10 @@ def test_unpacked_weights_are_stack_params(d_in, d_latent, hidden):
     n_pre = w.wz.shape[0]
     stages = dz // 16 + n_pre * (d_latent // 16 + 2 * hidden // 16)
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert packed.numel() == stages * fm.TC_K_STEP * hidden
+    # then 2 post blocks and lin_out (d_out 4: one stage)
+    assert fm.tc_stages(w) == (stages, 2 * 2 * hidden // 16, 1)
+    assert packed.numel() == (stages + 4 * hidden // 16 + 1) \
+        * fm.TC_K_STEP * hidden
     got = unpack_tc(packed, d_in, d_latent, hidden, n_pre)
     for name, t in zip(("w_in", "wz", "w0", "w1"), got):
         assert torch.equal(t, getattr(w, name)), name
@@ -153,10 +177,9 @@ def test_tensor_core_shared_memory():
 @pytest.mark.parametrize("mode", list(fm.MODES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_routing(mode, dtype):
-    """bf16 pre_combine_pe and pre_combine take the tensor-core kernel;
-    f32, and full_pe and post_combine in either dtype, the CUDA-core one."""
-    want = ("tensor_core" if dtype == torch.bfloat16
-            and mode in ("pre_combine_pe", "pre_combine") else "cuda_core")
+    """Every bf16 mode takes the tensor-core kernel, every f32 mode the
+    CUDA-core one."""
+    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
     assert fm.variant(mode, dtype) == want
 
 
@@ -169,3 +192,160 @@ def test_packed_weights_cached():
     with torch.no_grad():
         mlp.lin_in.weight.mul_(2.0)
     assert fm.tc_weights(fm.stacked_params(mlp, torch.bfloat16)) is not packed
+
+
+# -- after the combine: post blocks and lin_out (full_pe, post_combine) ------
+
+# (d_in, d_latent, hidden) x d_out: NeRF (4) and YOLO (21) heads at every
+# width of WIDTHS
+@pytest.mark.parametrize("d_out", [4, 21])
+@pytest.mark.parametrize("d_in,d_latent,hidden", WIDTHS)
+def test_unpacked_post_weights_are_stack_params(d_in, d_latent, hidden,
+                                                d_out):
+    """The stream after the pre blocks holds w0p, w1p and w_out (zero
+    columns up to Nout: 8 for d_out 4, 24 for 21) in whole ring stages."""
+    _, w = _weights(d_in, d_latent, hidden, d_out=d_out)
+    packed = fm.pack_tc(w)
+    nout = fm.tc_out_width(d_out)
+    assert nout == {4: 8, 21: 24}[d_out]
+    pre, post, out = fm.tc_stages(w)
+    assert post == 2 * 2 * hidden // 16
+    assert out == fm.tc_out_stages(hidden, nout) == -(-(hidden // 16)
+                                                      // (hidden // nout))
+    assert packed.numel() == (pre + post + out) * 16 * hidden
+    w0p, w1p, w_out = unpack_tc_post(packed, w)
+    assert torch.equal(w0p, w.w0p) and torch.equal(w1p, w.w1p)
+    assert torch.equal(w_out[:, :d_out], w.w_out)
+    assert not w_out[:, d_out:].any()
+
+
+@pytest.mark.parametrize("hidden,d_out,stages", [
+    (512, 4, 1), (512, 21, 2), (512, 256, 16), (128, 21, 2), (64, 4, 1),
+    (64, 64, 4)])
+def test_lin_out_stage_layout(hidden, d_out, stages):
+    """Element (16 j + 8 c + e, 8 q + r) of w_out (K slice j of 16 x Nout)
+    sits in lin_out's stage j // (H // Nout) at (j % (H // Nout)) * 16 *
+    Nout + q * 128 + c * 64 + r * 8 + e; the rest of each stage is zero.
+    At H = 512 NeRF's lin_out is one stage, YOLO's two."""
+    _, w = _weights(42, 48, hidden, d_out=d_out)
+    packed = fm.pack_tc(w)
+    pre, post, out = fm.tc_stages(w)
+    assert out == stages
+    stage = 16 * hidden
+    lo = packed[(pre + post) * stage:]
+    assert lo.numel() == stages * stage
+    nout, per = fm.tc_out_width(d_out), hidden // fm.tc_out_width(d_out)
+    rng = np.random.default_rng(0)
+    for _ in range(60):
+        j, c, e = rng.integers(0, hidden // 16), rng.integers(0, 2), \
+            rng.integers(0, 8)
+        q, r = rng.integers(0, nout // 8), rng.integers(0, 8)
+        k, n = 16 * j + 8 * c + e, 8 * q + r
+        at = (j // per) * stage + (j % per) * 16 * nout + q * 128 + c * 64 \
+            + r * 8 + e
+        want = w.w_out[k, n] if n < d_out else 0
+        assert lo[at] == want
+    used = min(per, hidden // 16) * 16 * nout
+    assert not lo.reshape(stages, stage)[:, used:].any()
+
+
+@pytest.mark.parametrize("combine_layer", [1, 3, 5])
+@pytest.mark.parametrize("d_in,d_latent,hidden", [(42, 512, 512),
+                                                  (42, 1792, 512),
+                                                  (78, 40, 64)])
+def test_post_combine_stage_offset(d_in, d_latent, hidden, combine_layer):
+    """post_combine's walk starts at stage tc_stages(w)[0]: lin_in (rows
+    padded to 16) and n_pre x (lin_z rows padded to 16, fc_0, fc_1).  There
+    the first post block's fc_0 begins, or lin_out when there is none."""
+    _, w = _weights(d_in, d_latent, hidden, combine_layer=combine_layer)
+    packed = fm.pack_tc(w)
+    pre = fm.tc_stages(w)[0]
+    n_pre = min(combine_layer, 5)
+    assert pre == (-(-d_in // 16) + n_pre * (-(-d_latent // 16)
+                                             + 2 * hidden // 16))
+    at = packed[pre * 16 * hidden:]
+    if n_pre < 5:
+        assert torch.equal(at[:hidden * hidden], fm._pack_layer(w.w0p[0]))
+    else:
+        assert fm.tc_stages(w)[1] == 0
+        assert torch.equal(unpack_tc_post(packed, w)[2][:, :4], w.w_out)
+
+
+@pytest.mark.parametrize("d_out", [4, 21, 256, 257])
+@pytest.mark.parametrize("mode", ["full_pe", "post_combine"])
+def test_fits_lin_out_modes(mode, d_out):
+    """Modes 0 and 2 in bf16 take every d_out with a lin_out width (up to
+    256, one wgmma N) no wider than hidden; post_combine has no
+    z-feature or latent condition; the shared memory is mode 1's."""
+    bf16 = torch.bfloat16
+    want = d_out <= 256
+    assert fm.fits(42, 512, 512, bf16, mode, d_out) is want
+    assert fm.fits(42, 1792, 512, bf16, mode, d_out) is want
+    # Nout no wider than hidden: 24 fits at 64, 256 only at 256 and up
+    assert fm.fits(42, 64, 64, bf16, mode, d_out) is (d_out <= 64)
+    # post_combine ignores d_in and d_latent; full_pe keeps their limits
+    assert fm.fits(0, 0, 512, bf16, mode, d_out) is (
+        want and mode == "post_combine")
+    assert fm.fits(520, 40, 512, bf16, mode, d_out) is (
+        want and mode == "post_combine")
+    assert fm.smem_bytes_tc(512) == 226384 <= fm.SMEM_LIMIT
+    # f32 stays on the CUDA cores, whose lin_out is a scalar loop
+    assert fm.fits(42, 512, 512, torch.float32, mode, d_out)
+
+
+@pytest.mark.parametrize("d_out", [4, 21])
+@pytest.mark.parametrize("mode", ["full_pe", "post_combine"])
+def test_lin_out_twin_on_unpacked_weights(mode, d_out):
+    """The plain twin fed w0p, w1p and w_out unpacked from the stream
+    equals the twin on ``stack_params``'s."""
+    d_in, d_latent, hidden = 42, 48, 128
+    _, w = _weights(d_in, d_latent, hidden, d_out=d_out)
+    w0p, w1p, w_out = unpack_tc_post(fm.pack_tc(w), w)
+    wu = dataclasses.replace(w, w0p=w0p, w1p=w1p,
+                             w_out=w_out[:, :d_out].contiguous())
+    g = torch.Generator().manual_seed(1)
+    rows = 37
+    lat = torch.randn((rows, d_latent), generator=g).bfloat16()
+    base = torch.rand((rows, 6), generator=g) * 2 - 1
+    code = PositionalEncoding(6, 3, 1.5, True)
+    if mode == "full_pe":
+        args, argsu = (base, lat, w, code), (base, lat, wu, code)
+    else:
+        h = fm.pre_combine_pe_plain(base, lat, w, code)
+        args, argsu = (h, w), (h, wu)
+    twin = getattr(fm, mode + "_plain")
+    got = twin(*argsu)
+    assert got.shape == (rows, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, twin(*args))
+
+
+def test_replace_drops_the_packed_stream():
+    """``dataclasses.replace`` of StackedWeights (as the card tests cut
+    blocks) does not carry a stream packed for the old weights."""
+    _, w = _weights(42, 64, 128)
+    fm.tc_weights(w)
+    cut = dataclasses.replace(w, w0p=w.w0p[:1].contiguous(),
+                              b0p=w.b0p[:1].contiguous(),
+                              w1p=w.w1p[:1].contiguous(),
+                              b1p=w.b1p[:1].contiguous())
+    assert cut.tc is None
+    assert fm.tc_weights(cut).numel() == sum(fm.tc_stages(cut)) * 16 * 128
+
+
+@pytest.mark.parametrize("d_out,want", [(4, True), (21, True), (256, True),
+                                        (300, False)])
+def test_can_fuse_needs_a_lin_out_width(d_out, want):
+    """A bf16 route ends in post_combine (or full_pe), so the model fuses
+    only when its lin_out has a tensor-core width; f32 keeps fusing."""
+    from types import SimpleNamespace
+
+    from pixelnerf_yolo_torch.models.pixelnerf import PixelNeRF
+
+    mlp = ResnetFC(42, d_out=d_out, n_blocks=5, d_latent=64, d_hidden=512,
+                   combine_layer=3, dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(0))
+    for dtype, expect in ((torch.bfloat16, want), (torch.float32, True)):
+        model = SimpleNamespace(use_fused_mlp="auto", d_in=42,
+                                compute_dtype=dtype)
+        for ns, mode in ((1, "full_pe"), (2, "full_pe"), (2, "pre_combine")):
+            assert PixelNeRF._can_fuse(model, mlp, ns, mode) is expect
