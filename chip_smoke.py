@@ -5,11 +5,13 @@
 
 Phases, each of which fails the run (non-zero exit) when its check fails:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile csrc/field_mlp.cu (CUDA cores: every f32 mode) and
-     csrc/field_mlp_tc.cu (tensor cores: every bf16 mode) with one nvcc
-     each, started together (sm_90a); print ptxas's register, spill and
-     shared-memory report, the tensor-core kernel's at H = 512 apart (it
-     fails when that kernel spills);
+  2. build: compile csrc/field_mlp_tc.cu (tensor cores: every bf16
+     mode), csrc/field_mlp_f32.cu (CUDA cores, weights and latent through
+     a ring: f32 pre_combine_pe and pre_combine) and csrc/field_mlp.cu
+     (CUDA cores: f32 full_pe and post_combine) with one nvcc each,
+     started together (sm_90a); print ptxas's register, spill and
+     shared-memory report, the tensor-core and ring kernels' at H = 512
+     apart (it fails when one of those spills);
   3. NeRF render: the flagship NeRF render (resnet34, 64 + 16 + 16
      samples, 128x128 source views, random weights from a seed) at NS=1
      and NS=2 in bf16 and f32, through make_model / make_renderer, with the
@@ -20,8 +22,10 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      latent, 5 x 512 ResnetFC, 21 outputs) at NS=3 in bf16, 16,384 rays of
      a 128x128 target view, through pre_combine_pe + post_combine, then
      plain, compared; the share of samples whose latent YOLO mode keeps;
-     an f32 render of 1,024 rays that no kernel may take (its 32 x 1792
-     f32 latent tile does not fit in shared memory);
+     the same render in f32, through pre_combine_pe (the ring kernel,
+     which streams the 1792-d latent) + post_combine where ``fits``
+     takes these widths, compared with plain; where it does not, no
+     kernel may launch;
   5. detection: encode 3 source views, YOLO rays on the 32-px cell grid of
      a 384x384 target view, YoloRenderer, decode_cells, nms_padded and
      tp_fp_fn_padded on the card against seeded target boxes; the same
@@ -34,13 +38,14 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
   7. kernels: each field-MLP kernel against its plain twin on the card, in
      f32 and bf16, on 40,013 rows (a ragged tail) and at the row counts of
      its launches in the renders above; pre_combine_pe and post_combine
-     also at the YOLO widths (bf16); times of the kernel, the twin and a
-     cuBLAS addmm chain at the first render launch's rows (the tensor-core
-     kernels, every bf16 one, over 20 launches, the CUDA-core ones over
-     3), beside the least time the card needs for that work, with
-     TFLOP/s, kernel/bound and kernel/library.
-The launch counters are zeroed just before each render path (3, 4, 5, 6)
-and read just after it; a kernel of a path that never launched fails it.
+     also at the YOLO widths (bf16, and f32 where it fits); times of the
+     kernel, the twin and a cuBLAS addmm chain at the first render
+     launch's rows (TIMING_REPS launches per variant), beside the least
+     time the card needs for that work, with TFLOP/s, kernel/bound and
+     kernel/library.
+The launch counters (per wrapper and per wrapper and variant) are zeroed
+just before each render path (3, 4, 5, 6) and read just after it; a
+kernel of a path that never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -68,9 +73,11 @@ REPLACES = {
 }
 KINDS = tuple(REPLACES)
 SOURCES = {"cuda_core": "pixelnerf_yolo_torch/csrc/field_mlp.cu",
+           "cuda_core_ring": "pixelnerf_yolo_torch/csrc/field_mlp_f32.cu",
            "tensor_core": "pixelnerf_yolo_torch/csrc/field_mlp_tc.cu"}
-# launches per timing: the tensor-core kernels take milliseconds
-TIMING_REPS = {"cuda_core": 3, "tensor_core": 20}
+# launches per timing: the tensor-core kernels take milliseconds, the f32
+# ring kernel ~0.1 s at a render launch's rows, field_mlp.cu's ~1 s
+TIMING_REPS = {"cuda_core": 3, "cuda_core_ring": 10, "tensor_core": 20}
 H, CL, NB = 512, 3, 5
 # field widths: NeRF flagship (PE of xyz 42, viewdirs appended), the same
 # with use_code_viewdirs (PE of [xyz, viewdirs], 78), YOLO (1792-d latent,
@@ -105,8 +112,7 @@ VIEWDIRS_RENDERS = [
 # relative to max(1, max|plain|): the same bf16 rounding argument as
 # RENDER_TOL
 YOLO_SIZE = 128
-YOLO_F32_RAYS = 1024
-YOLO_TOL = 2e-2
+YOLO_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # detection (conf/exp/yolo.conf): anchors of the 32-px scale, thresholds
 DET_SIZE, CELL = 384, 32
 ANCHORS = [[0.02, 0.03], [0.04, 0.07], [0.08, 0.06]]
@@ -223,35 +229,41 @@ def library_chain(kind, *args):
     return lin(torch.relu(x), w.w_out, w.b_out).float()
 
 
-def print_tc_report() -> bool:
+def print_kernel_reports() -> bool:
     """The ptxas lines (registers, spills, stack, shared memory) of every
-    tensor-core kernel instantiation at H = 512 (one per group of modes:
-    the pre-combine half, the whole chain, the post-combine half), and
-    their dynamic shared memory.  False when one spills: a spill there
-    costs several times the kernel's time."""
+    H = 512 instantiation of the tensor-core kernel (one per group of
+    modes: the pre-combine half, the whole chain, the post-combine half)
+    and of the f32 ring kernel, with their dynamic shared memory.  False
+    when one spills: a spill there costs several times the kernel's
+    time."""
     import re
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
 
-    lines = fm.build_info["field_mlp_tc"]["log"].splitlines()
-    for line in lines:
-        if "warning" in line.lower():
-            print("  nvcc:", line.strip())
-    ok, found = True, 0
-    for i, line in enumerate(lines):
-        if "Compiling" in line and "ILi512E" in line:
-            found += 1
-            report = " | ".join(x.strip() for x in lines[i + 2:i + 4])
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", report)
-            good = spill is not None and spill.groups() == ("0", "0")
-            ok &= good
-            print(f"tensor-core kernel, H=512: {report} | dynamic shared "
-                  f"memory {fm.smem_bytes_tc(H)} B "
-                  f"{'ok' if good else 'FAILED: spills'}", flush=True)
-    if not found:
-        print("FAILED: no ptxas report of the H = 512 tensor-core kernel")
-    return ok and found > 0
+    ok = True
+    for lib, label, smem in (
+            ("field_mlp_tc", "tensor-core kernel", fm.smem_bytes_tc(H)),
+            ("field_mlp_f32", "f32 ring kernel", fm.smem_bytes_f32(H))):
+        lines = fm.build_info[lib]["log"].splitlines()
+        for line in lines:
+            if "warning" in line.lower():
+                print("  nvcc:", line.strip())
+        found = 0
+        for i, line in enumerate(lines):
+            if "Compiling" in line and "ILi512E" in line:
+                found += 1
+                report = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", report)
+                good = spill is not None and spill.groups() == ("0", "0")
+                ok &= good
+                print(f"{label}, H=512: {report} | dynamic shared memory "
+                      f"{smem} B {'ok' if good else 'FAILED: spills'}",
+                      flush=True)
+        if not found:
+            print(f"FAILED: no ptxas report of the H = 512 {label}")
+            ok = False
+    return ok
 
 
 def check_kernel(kind, spec, dtype_name, rows_list, device):
@@ -340,10 +352,20 @@ def check_kernels(device, render_rows, yolo_rows):
                 kind, spec, dtype_name, [CHECK_ROWS, *render_rows[kind]],
                 device)
             ok &= kok
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
     for kind in ("pre_combine_pe", "post_combine"):
         kok, results[(kind, "yolo")] = check_kernel(
             kind, YOLO, "bfloat16", [CHECK_ROWS, *yolo_rows[kind]], device)
         ok &= kok
+        if fm.fits(YOLO["d_in"], YOLO["dL"], H, torch.float32, kind,
+                   YOLO["d_out"]):
+            kok, results[(kind, "yolo_f32")] = check_kernel(
+                kind, YOLO, "float32", [CHECK_ROWS, *yolo_rows[kind]],
+                device)
+            ok &= kok
     return ok, results
 
 
@@ -448,7 +470,7 @@ def nerf_path(models, renders, device, label):
         outs[(ns, dtype_name)] = out
         print(f"render {label} NS={ns} {dtype_name:8s} rays={n_rays} "
               f"kernels: {sec:.3f} s, {n_rays / sec:.1f} rays/s", flush=True)
-    launches = dict(fm.launches)
+    launches = dict(fm.variant_launches)
     print(f"launches on the {label} path: {launches}", flush=True)
     return outs, launches
 
@@ -517,8 +539,36 @@ def kept_latent_share(model, cond, rays, n_rays=512):
     return kept.mean().item(), kept.mean(dim=1).tolist()
 
 
+def launched(launches: dict, mode: str, var: str | None = None) -> int:
+    """Launches of ``mode`` (of its ``var`` kernel only, when given) in a
+    path's counts (``field_mlp.variant_launches``)."""
+    return sum(n for k, n in launches.items()
+               if k.split("/")[0] == mode
+               and (var is None or k.split("/")[1] == var))
+
+
+def compare_yolo(got, plain, tol) -> bool:
+    """Kernel vs plain YOLO render: aggregated prob and box values within
+    tol x max(1, max|plain|)."""
+    import torch
+
+    ok = True
+    for name, sl in (("prob", slice(0, 1)), ("boxes", slice(1, 7))):
+        a, b = got[..., sl].float(), plain[..., sl].float()
+        d = (a - b).abs().flatten()
+        scale = max(1.0, b.abs().max().item())
+        good = (bool(torch.isfinite(a).all()) and a.shape == b.shape
+                and d.max().item() <= tol * scale)
+        ok &= good
+        print(f"  {name:5s} max|diff|={d.max().item():.3e} "
+              f"p99={d.quantile(0.99).item():.3e} tol={tol * scale:.3e} "
+              f"range=[{a.min().item():.3f}, {a.max().item():.3f}] "
+              f"{'ok' if good else 'FAILED'}")
+    return ok
+
+
 def yolo_path(models, device):
-    """Phase 4.  Returns (ok, launches, bf16 chunk rays)."""
+    """Phase 4.  Returns (ok, bf16 launches, f32 launches, chunk rays)."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -528,11 +578,12 @@ def yolo_path(models, device):
     fm.reset_launches()
     got, sec, cond, rays = yolo_render(model, renderer, n_rays, device,
                                        "auto")
-    launches = dict(fm.launches)
+    launches = dict(fm.variant_launches)
     print(f"render YOLO NS=3 bfloat16 rays={n_rays} kernels: {sec:.3f} s, "
           f"{n_rays / sec:.1f} rays/s", flush=True)
     print(f"launches on the YOLO path: {launches}", flush=True)
-    ok = launches["pre_combine_pe"] > 0 and launches["post_combine"] > 0
+    ok = (launched(launches, "pre_combine_pe", "tensor_core") > 0
+          and launched(launches, "post_combine", "tensor_core") > 0)
     share, per_view = kept_latent_share(model, cond, rays)
     print(f"  latents kept (z < 0, in the image): {share:.4f} of samples; "
           f"per source view {[round(s, 4) for s in per_view]}")
@@ -542,36 +593,44 @@ def yolo_path(models, device):
     plain, psec, _, _ = yolo_render(model, renderer, n_rays, device, "false")
     print(f"render YOLO NS=3 bfloat16 rays={n_rays} plain:   {psec:.3f} s, "
           f"{n_rays / psec:.1f} rays/s")
-    for name, sl in (("prob", slice(0, 1)), ("boxes", slice(1, 7))):
-        a, b = got[..., sl].float(), plain[..., sl].float()
-        d = (a - b).abs().flatten()
-        scale = max(1.0, b.abs().max().item())
-        tol = YOLO_TOL * scale
-        good = (bool(torch.isfinite(a).all()) and a.shape == b.shape
-                and d.max().item() <= tol)
-        ok &= good
-        print(f"  {name:5s} max|diff|={d.max().item():.3e} "
-              f"p99={d.quantile(0.99).item():.3e} tol={tol:.3e} "
-              f"range=[{a.min().item():.3f}, {a.max().item():.3f}] "
-              f"{'ok' if good else 'FAILED'}")
+    ok &= compare_yolo(got, plain, YOLO_TOL["bfloat16"])
     cb = renderer.chunk_rays_for(n_rays, 3, cond.latent_flat.shape[-1])
     cb = -(-n_rays // -(-n_rays // cb))  # split evenly, as the renderer does
     del got, plain, cond
     torch.cuda.empty_cache()
 
-    # f32 at 1792-d latents: the kernels' 32 x 1792 f32 latent tile takes
-    # 229,376 B, 393,216 B with the other tiles, over the 232,448 B of
-    # shared memory a block can have; the plain path runs
+    # f32 at 1792-d latents: through pre_combine_pe (the ring kernel
+    # streams the latent) and post_combine where ``fits`` takes the
+    # widths; where it does not (a latent tile in shared memory), the
+    # plain path runs and no kernel may launch
     model32, renderer32 = models["float32"]
+    mlp = model32.mlp_coarse
+    want = model32._can_fuse(mlp, 3, model32._first_kernel(
+        mlp, 3, model32._pe_fusible()))
     fm.reset_launches()
-    out32, sec32, _, _ = yolo_render(model32, renderer32, YOLO_F32_RAYS,
-                                     device, "auto")
-    n32 = sum(fm.launches.values())
-    good = n32 == 0 and bool(torch.isfinite(out32).all())
+    out32, sec32, _, _ = yolo_render(model32, renderer32, n_rays, device,
+                                     "auto")
+    launches32 = dict(fm.variant_launches)
+    print(f"render YOLO NS=3 float32 rays={n_rays} kernels: {sec32:.3f} s, "
+          f"{n_rays / sec32:.1f} rays/s; launches {launches32} (fits: "
+          f"{want})", flush=True)
+    if want:
+        good = (launched(launches32, "pre_combine_pe", "cuda_core_ring") > 0
+                and launched(launches32, "post_combine", "cuda_core") > 0)
+        plain32, psec32, _, _ = yolo_render(model32, renderer32, n_rays,
+                                            device, "false")
+        print(f"render YOLO NS=3 float32 rays={n_rays} plain:   "
+              f"{psec32:.3f} s, {n_rays / psec32:.1f} rays/s")
+        good &= compare_yolo(out32, plain32, YOLO_TOL["float32"])
+        del plain32
+    else:
+        good = not launches32 and bool(torch.isfinite(out32).all())
+    if not good:
+        print("FAILED: the f32 YOLO render")
     ok &= good
-    print(f"render YOLO NS=3 float32 rays={YOLO_F32_RAYS}: {sec32:.3f} s, "
-          f"kernel launches {n32} (0 expected) {'ok' if good else 'FAILED'}")
-    return ok, launches, cb
+    del out32
+    torch.cuda.empty_cache()
+    return ok, launches, launches32, cb
 
 
 def standard_nms(bboxes, iou_threshold, threshold, allow_empty=False):
@@ -647,7 +706,7 @@ def detection_path(models, device):
     anchors = torch.tensor(ANCHORS, device=device)
     pred = decode_cells(out.float().reshape(1, side, side, A, 7), anchors)[0]
     torch.cuda.synchronize()
-    launches = dict(fm.launches)
+    launches = dict(fm.variant_launches)
     print(f"detection: {side}x{side} cells x {A} anchors, render "
           f"{sec:.3f} s; launches on the detection path: {launches}",
           flush=True)
@@ -680,7 +739,8 @@ def detection_path(models, device):
                     torch.cat([boxes_of(8, clusters, 0.01, (0.1, 0.2)),
                                torch.zeros((8, 6), device=device)]),
                     "seeded clustered boxes")
-    ok &= launches["pre_combine_pe"] > 0 and launches["post_combine"] > 0
+    ok &= (launched(launches, "pre_combine_pe") > 0
+           and launched(launches, "post_combine") > 0)
     if not ok:
         print("FAILED: detection")
     return ok, launches
@@ -719,14 +779,14 @@ def run(device) -> bool:
 
     t0 = time.perf_counter()
     fm.load_library()
-    print(f"build: both libraries in {time.perf_counter() - t0:.1f} s "
+    print(f"build: three libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc in parallel)", flush=True)
     for name, info in fm.build_info.items():
         print(f"  {name}: {info['path']}, nvcc {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("    ptxas:", line.strip())
-    tc_ok = print_tc_report()
+    tc_ok = print_kernel_reports()
 
     nerf = build_models(device)
     yolo = build_models(device, out_scale=1.0, yolo=True, backbone="custom")
@@ -737,25 +797,30 @@ def run(device) -> bool:
 
     # -- the render paths, each between a reset and a read of the counts --
     nerf_out, nerf_launches = nerf_path(nerf, RENDERS, device, "NeRF")
-    launched = all(nerf_launches[k] > 0
-                   for k in ("full_pe", "pre_combine_pe", "post_combine"))
-    if not launched:
+    # bf16 and f32 at NS=1 and NS=2: every mode of the PE route in both
+    # dtypes, each through its own kernel
+    every = all(launched(nerf_launches, k, fm.variant(k, getattr(torch, d)))
+                > 0 for k in ("full_pe", "pre_combine_pe", "post_combine")
+                for d in ("bfloat16", "float32"))
+    if not every:
         print("FAILED: a kernel of the NeRF path was never launched")
-    ok = tc_ok and launched
+    ok = tc_ok and every
     ok &= compare_plain(nerf, RENDERS, nerf_out, device, "NeRF")
     del nerf_out
     torch.cuda.empty_cache()
 
-    yok, yolo_launches, yolo_cb = yolo_path(yolo, device)
+    yok, yolo_launches, yolo32_launches, yolo_cb = yolo_path(yolo, device)
     ok &= yok
     dok, det_launches = detection_path(yolo, device)
     ok &= dok
 
     vd_out, vd_launches = nerf_path(viewdirs, VIEWDIRS_RENDERS, device,
                                     "viewdirs")
-    good = (vd_launches["pre_combine"] > 0 and vd_launches["post_combine"] > 0
-            and vd_launches["full_pe"] == 0
-            and vd_launches["pre_combine_pe"] == 0)
+    good = (all(launched(vd_launches, k, fm.variant(k, getattr(torch, d)))
+                > 0 for k in ("pre_combine", "post_combine")
+                for d in ("bfloat16", "float32"))
+            and launched(vd_launches, "full_pe") == 0
+            and launched(vd_launches, "pre_combine_pe") == 0)
     if not good:
         print("FAILED: the viewdirs path must run pre_combine + "
               "post_combine and no PE kernel")
@@ -786,31 +851,40 @@ def run(device) -> bool:
     kok, res = check_kernels(device, render_rows, yolo_rows)
     ok &= kok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
-             "detection": det_launches, "viewdirs": vd_launches}
+             "yolo_f32": yolo32_launches, "detection": det_launches,
+             "viewdirs": vd_launches}
+    timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []
     for name in KINDS:
         b, f = res[(name, "bfloat16")], res[(name, "float32")]
+
+        def counts(var):
+            return sum(launched(p, name, var) for p in paths.values())
+
         entry = {
             "name": name, "route": "cuda",
             "source": SOURCES[b["variant"]], "variant": b["variant"],
-            "replaces": REPLACES[name],
-            "launches": sum(p[name] for p in paths.values()),
+            "replaces": REPLACES[name], "launches": counts(b["variant"]),
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": b["library_ms"],
             "rows": b["rows"], "checked_rows": b["checked_rows"],
             "dtype": "bfloat16",
-            "launches_by_path": {k: p[name] for k, p in paths.items()},
+            "launches_by_path": {k: launched(p, name)
+                                 for k, p in paths.items()},
             "tflops": b["tflops"],
-            "float32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms", "variant")},
+            # the f32 kernel: its own source and count
+            "float32": {"name": name, "route": "cuda",
+                        "source": SOURCES[f["variant"]],
+                        "replaces": REPLACES[name],
+                        "launches": counts(f["variant"]),
+                        **{k: f[k] for k in timed + ("variant",)}},
         }
-        if (name, "yolo") in res:
-            y = res[(name, "yolo")]
-            entry["yolo_bfloat16"] = {k: y[k] for k in (
-                "rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "tflops")}
+        for key, label in (("yolo", "yolo_bfloat16"),
+                           ("yolo_f32", "yolo_float32")):
+            if (name, key) in res:
+                entry[label] = {k: res[(name, key)][k] for k in timed}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     return ok

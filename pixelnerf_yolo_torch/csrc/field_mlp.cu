@@ -1,27 +1,22 @@
 // Fused pixelNeRF field MLP (ResnetFC), f32, for Hopper (sm_90a), CUDA
 // cores.
 //
-// Replaces, for f32, the four Pallas TPU kernels of the JAX package's
-// pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:
+// Replaces, for f32, two of the four Pallas TPU kernels of the JAX
+// package's pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:
 //   mode 0  full_pe          <- fused_full_pe        (_full_pe_kernel)
-//   mode 1  pre_combine_pe   <- fused_pre_combine_pe (_pre_combine_pe_kernel)
 //   mode 2  post_combine     <- fused_post_combine   (_post_combine_kernel)
-//   mode 3  pre_combine      <- fused_pre_combine    (_pre_combine_kernel)
-// Every bf16 mode runs on the tensor cores instead (field_mlp_tc.cu); this
-// file refuses bf16.  The body stays templated on the element type T,
-// instantiated for float only: a float-only rewrite measured ~0.8% slower
-// on the H100.  It computes what the TPU kernels compute, with the same
-// rounding points: every Dense is an f32 accumulation plus an f32 bias;
-// the residual stream x stays in f32; lin_out writes f32.  The positional
-// encoding is computed directly as sin(f * x + phase) (the TPU kernel's
-// base @ M + P matmul has one non-zero per column, so both give the same
-// f32 value).  Mode 3 is mode 1 without the PE stage: the caller hands it
-// the z-features (the PE of [xyz, viewdirs] when the model encodes
-// viewdirs too, d_in 78 at the flagship widths), and the block loads them
-// into the buffer the PE stage fills in mode 1.  Like modes 0-2 it is
-// bound by operations (2.4 M multiply-adds against ~4.4 KB of input and
-// output per row at d_in 78, H = dL = 512) and shares their CUDA-core FMA
-// design.
+// The other two, f32 modes 1 (pre_combine_pe <- fused_pre_combine_pe) and
+// 3 (pre_combine <- fused_pre_combine), run in field_mlp_f32.cu (weights
+// and latent streamed through a ring), and every bf16 mode on the tensor
+// cores (field_mlp_tc.cu); this file refuses those.  The body still holds
+// the code of modes 1 and 3 (only modes 0 and 2 are instantiated) and
+// stays templated on the element type T, instantiated for float only: a
+// float-only rewrite measured ~0.8% slower on the H100.  It computes what
+// the TPU kernels compute, with the same rounding points: every Dense is
+// an f32 accumulation plus an f32 bias; the residual stream x stays in
+// f32; lin_out writes f32.  The positional encoding is computed directly
+// as sin(f * x + phase) (the TPU kernel's base @ M + P matmul has one
+// non-zero per column, so both give the same f32 value).
 //
 // What bounds it: at the flagship widths (H = dL = 512, 5 blocks) a row
 // costs 3.43 M multiply-adds against ~2 KB of input and output, so the
@@ -315,9 +310,7 @@ template <typename T>
 int dispatch_mode(int mode, const Params& p, cudaStream_t stream) {
   switch (mode) {
     case 0: return launch<T, 0>(p, stream);
-    case 1: return launch<T, 1>(p, stream);
     case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -336,8 +329,9 @@ const char* field_mlp_error_string(int code) {
 }
 
 // Launches one kernel on `stream`; returns the CUDA error code (0 = ok).
-// Pointers a mode does not use may be null.  bf16 (every mode) is
-// refused: field_mlp_tc.cu runs it.
+// Pointers a mode does not use may be null.  Modes 1 and 3 are refused
+// (field_mlp_f32.cu runs them), and so is bf16 (every mode:
+// field_mlp_tc.cu runs it).
 int field_mlp_launch(int mode, int bf16, const void* base, const void* zfeat,
                      const void* latent, const void* h_in, const void* w_in, const void* b_in,
                      const void* wz, const void* bz, const void* w0,

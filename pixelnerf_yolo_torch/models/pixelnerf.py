@@ -211,6 +211,18 @@ class PixelNeRF(nn.Module):
                     for m in (mode, "post_combine"))
         )
 
+    @staticmethod
+    def _first_kernel(mlp, ns: int, pe_fusible: bool) -> str:
+        """The kernel that starts the fused route: full_pe (the whole MLP
+        in one kernel) at NS=1 with a post-combine block, else
+        pre_combine_pe when the PE runs in the kernel, pre_combine when it
+        does not (``fused_pe_forward``, ``fused_forward``)."""
+        if not pe_fusible:
+            return "pre_combine"
+        if ns == 1 and mlp.combine_layer < mlp.n_blocks:
+            return "full_pe"
+        return "pre_combine_pe"
+
     def _pe_fusible(self) -> bool:
         """Whether the positional encoding can run inside the kernel (xyz
         z-feature, PE without viewdirs in the code, viewdirs appended)."""
@@ -282,8 +294,8 @@ class PixelNeRF(nn.Module):
         use_fine = not coarse and self.mlp_fine is not None
         mlp = self.mlp_fine if use_fine else self.mlp_coarse
         pe_fusible = self._pe_fusible()
-        fuse = self._can_fuse(mlp, NS,
-                              "full_pe" if pe_fusible else "pre_combine")
+        fuse = self._can_fuse(mlp, NS, self._first_kernel(mlp, NS,
+                                                          pe_fusible))
         fuse_pe = fuse and pe_fusible
 
         xyz_rot, xyz_cam = self._to_camera(cond, xyz)

@@ -13,15 +13,20 @@ The first three carry models whose positional encoding fits in the kernel
 (``fused_pe_forward``); the last carries the others (``fused_forward``,
 e.g. ``use_code_viewdirs = True``), followed by ``post_combine``.
 
-Two variants (``variant``): every bf16 mode runs on the tensor cores
-(csrc/field_mlp_tc.cu: wgmma, weights streamed through a ring of TMA
-copies, packed once by ``pack_tc``); every f32 mode on the CUDA cores
-(csrc/field_mlp.cu, f32 only).  Both are CUDA C++ for sm_90a.
+Three variants (``variant``), each CUDA C++ for sm_90a: every bf16 mode
+runs on the tensor cores (csrc/field_mlp_tc.cu: wgmma, weights streamed
+through a ring of TMA copies, packed once by ``pack_tc``); f32
+``pre_combine_pe`` and ``pre_combine`` on the CUDA cores with the weight
+slices and the latent streamed through a ring of bulk and TMA copies
+(csrc/field_mlp_f32.cu, no packing: ``f32_schedule`` mirrors its walk);
+f32 ``full_pe`` and ``post_combine`` on the CUDA cores with synchronous
+weight tiles (csrc/field_mlp.cu).
 
 Each wrapper runs its plain twin (``*_plain``: the same function with the
 same rounding points, in plain torch) when its tensors lie on the CPU,
 launches its kernel when they lie on a CUDA device, and raises otherwise.
-``launches`` counts kernel launches per wrapper.
+``launches`` counts kernel launches per wrapper, ``variant_launches``
+per wrapper and variant ("mode/variant").
 
 Rounding points (shared by kernels and twins): each Dense is an f32
 accumulation plus an f32 bias, then one cast to the compute dtype; the
@@ -49,7 +54,8 @@ from ..nn.code import PositionalEncoding
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = {"field_mlp": PACKAGE_DIR / "csrc" / "field_mlp.cu",
-           "field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu"}
+           "field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu",
+           "field_mlp_f32": PACKAGE_DIR / "csrc" / "field_mlp_f32.cu"}
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -69,16 +75,28 @@ TC_K_STEP = 16
 TC_STAGES = 5
 TC_CLUSTER = 2
 TC_ROW_PAD = 8
+# the f32 ring variant (field_mlp_f32.cu): rows per CTA, depth of a ring
+# stage, ring stages, CTAs per cluster
+F32_ROWS = 32
+F32_K_STEP = 16
+F32_STAGES = 4
+F32_CLUSTER = 2
+# which library runs each variant
+LIBRARY = {"cuda_core": "field_mlp", "tensor_core": "field_mlp_tc",
+           "cuda_core_ring": "field_mlp_f32"}
 MODES = {"full_pe": 0, "pre_combine_pe": 1, "post_combine": 2,
          "pre_combine": 3}
 # lin_out widths of the tensor-core kernel (one instantiation each)
 TC_OUT_WIDTHS = (8, 16, 24, 32, 64, 128, 256)
 launches = {name: 0 for name in MODES}
+# the same launches by kernel: "mode/variant" -> count
+variant_launches: dict = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    variant_launches.clear()
 
 
 @dataclasses.dataclass
@@ -302,8 +320,42 @@ def post_combine_plain(h, w: StackedWeights) -> torch.Tensor:
 
 def variant(mode: str, compute_dtype) -> str:
     """Which kernel a launch of ``mode`` takes: "tensor_core"
-    (field_mlp_tc.cu) in bf16, "cuda_core" (field_mlp.cu) in f32."""
-    return "tensor_core" if compute_dtype == torch.bfloat16 else "cuda_core"
+    (field_mlp_tc.cu) in bf16; in f32 "cuda_core_ring" (field_mlp_f32.cu)
+    for the pre-combine modes, "cuda_core" (field_mlp.cu) for the others."""
+    if compute_dtype == torch.bfloat16:
+        return "tensor_core"
+    if mode in ("pre_combine_pe", "pre_combine"):
+        return "cuda_core_ring"
+    return "cuda_core"
+
+
+def smem_bytes_f32(hidden: int, k_step: int = F32_K_STEP,
+                   stages: int = F32_STAGES) -> int:
+    """Shared memory of the f32 ring kernel: alignment slack, the ring
+    (k_step x H weight slice + 32 x k_step latent slice per stage, f32),
+    the k-major activation buffer (H x 32), the barriers.  It does not grow
+    with d_latent."""
+    stage = (k_step * hidden + F32_ROWS * k_step) * 4
+    return 128 + stages * stage + hidden * F32_ROWS * 4 + 16 * stages
+
+
+def f32_schedule(d_in: int, d_latent: int, hidden: int, n_pre: int,
+                 k_step: int = F32_K_STEP):
+    """The ring stages the f32 ring kernel walks, in order, as (weight,
+    block, first row, rows, latent column): lin_in's slices of w_in (the
+    last one short when d_in is not a multiple of k_step), then per pre
+    block lin_z's slices of wz[block] (each with the latent's k_step
+    columns from the given one), fc_0's of w0[block] and fc_1's of
+    w1[block].  Each slice is rows [first, first + rows) of its (K, H)
+    matrix; latent column None: no latent."""
+    k = k_step
+    out = [("w_in", None, r, min(k, d_in - r), None)
+           for r in range(0, d_in, k)]
+    for b in range(n_pre):
+        out += [("wz", b, r, k, r) for r in range(0, d_latent, k)]
+        out += [(name, b, r, k, None) for name in ("w0", "w1")
+                for r in range(0, hidden, k)]
+    return out
 
 
 def smem_bytes_tc(hidden: int) -> int:
@@ -328,34 +380,31 @@ def fits(d_in: int, d_latent: int, hidden: int, compute_dtype,
     """Whether the kernel of ``mode`` takes these widths: hidden a multiple
     of 64 up to 512 and the block's tiles within the shared-memory limit;
     before the combine (every mode but post_combine) also the z-features,
-    rounded up to the weight tile (the tensor-core variant: its K step),
-    no wider than hidden and d_latent a multiple of the same.  The
-    tensor-core variant's shared memory depends on neither d_latent nor
-    the mode; its lin_out (full_pe, post_combine) needs a width for d_out
-    (``tc_out_width``: d_out <= 256) no wider than hidden."""
+    rounded up to the variant's weight tile or K step (16 in each), no
+    wider than hidden and d_latent a multiple of the same.  Only the
+    shared memory of field_mlp.cu (f32 full_pe and post_combine) depends
+    on d_latent and the mode; the tensor-core variant's lin_out (full_pe,
+    post_combine) needs a width for d_out (``tc_out_width``: d_out <= 256)
+    no wider than hidden."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return False
-    if variant(mode, compute_dtype) == "tensor_core":
-        ok = (hidden % 64 == 0 and 0 < hidden <= MAX_HIDDEN
-              and smem_bytes_tc(hidden) <= SMEM_LIMIT)
-        if mode != "post_combine":
-            ok = ok and (-(-d_in // TC_K_STEP) * TC_K_STEP <= hidden
-                         and d_latent > 0 and d_latent % TC_K_STEP == 0)
-        if mode in ("full_pe", "post_combine"):
-            nout = tc_out_width(d_out)
-            ok = ok and nout is not None and nout <= hidden
-        return ok
-    elt = torch.empty((), dtype=compute_dtype).element_size()
-    ok = (
-        hidden % COLUMN_LANES == 0
-        and 0 < hidden <= MAX_HIDDEN
-        and smem_bytes(mode, elt, hidden, d_latent) <= SMEM_LIMIT
-    )
+    var = variant(mode, compute_dtype)
+    if var == "tensor_core":
+        smem = smem_bytes_tc(hidden)
+    elif var == "cuda_core_ring":
+        smem = smem_bytes_f32(hidden)
+    else:
+        smem = smem_bytes(mode, 4, hidden, d_latent)
+    ok = hidden % COLUMN_LANES == 0 and 0 < hidden <= MAX_HIDDEN \
+        and smem <= SMEM_LIMIT
     if mode != "post_combine":
-        ok = ok and (
-            -(-d_in // WEIGHT_TILE_ROWS) * WEIGHT_TILE_ROWS <= hidden
-            and d_latent > 0 and d_latent % WEIGHT_TILE_ROWS == 0
-        )
+        k = {"tensor_core": TC_K_STEP, "cuda_core_ring": F32_K_STEP,
+             "cuda_core": WEIGHT_TILE_ROWS}[var]
+        ok = ok and (-(-d_in // k) * k <= hidden
+                     and d_latent > 0 and d_latent % k == 0)
+    if var == "tensor_core" and mode in ("full_pe", "post_combine"):
+        nout = tc_out_width(d_out)
+        ok = ok and nout is not None and nout <= hidden
     return ok
 
 
@@ -419,8 +468,8 @@ def build() -> dict:
 
 
 def load_library() -> dict:
-    """Build and load both libraries; check that their tiling constants
-    agree with this module's mirrors."""
+    """Build and load the three libraries; check that their tiling
+    constants agree with this module's mirrors."""
     if not _libraries:
         paths = build()
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -445,8 +494,51 @@ def load_library() -> dict:
         if any(tc.field_mlp_tc_out_width(d) != (tc_out_width(d) or 0)
                for d in range(TC_OUT_WIDTHS[-1] + 2)):
             raise KernelBuildError("tensor-core lin_out widths disagree")
-        _libraries.update(field_mlp=lib, field_mlp_tc=tc)
+        f32 = bind_f32(paths["field_mlp_f32"])
+        check_f32(f32)
+        _libraries.update(field_mlp=lib, field_mlp_tc=tc, field_mlp_f32=f32)
     return _libraries
+
+
+def bind_f32(path) -> ctypes.CDLL:
+    """Load a build of field_mlp_f32.cu and declare its C interface."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    f32 = ctypes.CDLL(str(path))
+    f32.field_mlp_f32_launch.argtypes = (
+        [ci] + [vp] * 12 + [ci] * 6 + [ctypes.c_float, vp]
+    )
+    f32.field_mlp_f32_launch.restype = ci
+    f32.field_mlp_f32_error_string.argtypes = [ci]
+    f32.field_mlp_f32_error_string.restype = ctypes.c_char_p
+    for c in ("rows_per_cta", "k_step", "stages", "cluster"):
+        getattr(f32, f"field_mlp_f32_{c}").restype = ci
+    f32.field_mlp_f32_smem_bytes.argtypes = [ci]
+    f32.field_mlp_f32_smem_bytes.restype = ci
+    f32.field_mlp_f32_walk_stages.argtypes = [ci] * 4
+    f32.field_mlp_f32_walk_stages.restype = ci
+    return f32
+
+
+def check_f32(f32, consts=(F32_ROWS, F32_K_STEP, F32_STAGES, F32_CLUSTER)):
+    """Raise unless a build of field_mlp_f32.cu has the tiling constants
+    ``consts`` (rows, stage depth, stages, cluster) and agrees with this
+    module's mirrors of its shared memory (every hidden width) and of its
+    walk (the flagship widths and narrow ones)."""
+    got = tuple(getattr(f32, f"field_mlp_f32_{c}")()
+                for c in ("rows_per_cta", "k_step", "stages", "cluster"))
+    if got != tuple(consts):
+        raise KernelBuildError(f"f32 kernel tiling constants disagree: {got}")
+    k, stages = consts[1], consts[2]
+    if any(f32.field_mlp_f32_smem_bytes(h) != smem_bytes_f32(h, k, stages)
+           for h in range(64, MAX_HIDDEN + 1, 64)):
+        raise KernelBuildError("f32 kernel shared memory disagrees")
+    for shape in ((42, 512, 512, 3), (78, 1792, 512, 3), (6, 48, 128, 1),
+                  (42, 64, 64, 0)):
+        if shape[1] % k or shape[2] % k:  # widths this build does not take
+            continue
+        if f32.field_mlp_f32_walk_stages(*shape) != len(
+                f32_schedule(*shape, k_step=k)):
+            raise KernelBuildError(f"f32 kernel walk disagrees at {shape}")
 
 
 def bind_tc(path) -> ctypes.CDLL:
@@ -521,8 +613,10 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
     n_pre = w.wz.shape[0] if mode != "post_combine" else 0
     n_post = w.w0p.shape[0] if mode in ("full_pe", "post_combine") else 0
     stream = torch.cuda.current_stream(device).cuda_stream
-    if variant(mode, cdt) == "tensor_core":
-        lib, name = libs["field_mlp_tc"], "field_mlp_tc"
+    var = variant(mode, cdt)
+    name = LIBRARY[var]
+    lib = libs[name]
+    if var == "tensor_core":
         if latent is not None and latent.data_ptr() % 16:
             raise ValueError("latent must start on a 16-byte boundary (TMA)")
         if h is not None and h.data_ptr() % 16:
@@ -541,8 +635,21 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
                 float(freq_factor), stream,
             )
         error_string = lib.field_mlp_tc_error_string
+    elif var == "cuda_core_ring":
+        pre_args = [latent] + [getattr(w, f) for f in WEIGHT_NAMES[:8]]
+        for label, t in zip(("latent",) + WEIGHT_NAMES[:8], pre_args):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{label} must start on a 16-byte boundary "
+                                 "(TMA and bulk copies)")
+        with torch.cuda.device(device):
+            err = lib.field_mlp_f32_launch(
+                MODES[mode], ptr(base), ptr(zfeat),
+                *(ptr(t) for t in pre_args), ptr(out), n_rows, d_in,
+                d_latent, w.hidden, n_pre, num_freqs, float(freq_factor),
+                stream,
+            )
+        error_string = lib.field_mlp_f32_error_string
     else:
-        lib, name = libs["field_mlp"], "field_mlp"
         with torch.cuda.device(device):
             err = lib.field_mlp_launch(
                 MODES[mode], int(cdt == torch.bfloat16), ptr(base),
@@ -556,6 +663,8 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
         msg = error_string(err).decode()
         raise RuntimeError(f"{name} {mode} launch failed: {msg} ({err})")
     launches[mode] += 1
+    key = f"{mode}/{var}"
+    variant_launches[key] = variant_launches.get(key, 0) + 1
     return out
 
 

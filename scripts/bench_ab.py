@@ -12,9 +12,10 @@ in the order given, a fresh process imports that checkout's
 its own ``_build/``, checks each kernel of ``--kinds`` against its plain
 twin and times it at the rows of ``chip_smoke.py``'s phase 7 (the mean
 of ``--reps`` launches after a warm-up) in ``--dtype``: NeRF widths, the
-YOLO widths for ``pre_combine_pe`` and ``post_combine`` (bf16 only: no
-f32 kernel takes them), and with ``--fine`` also the fine pass's rows
-(1.5x).  ``--render NS`` then times ``chip_smoke.py``'s NeRF flagship
+YOLO widths for ``pre_combine_pe`` and ``post_combine`` where that
+checkout's ``fits`` takes them (bf16 always; f32 ``post_combine``, and
+f32 ``pre_combine_pe`` once its kernel streams the latent), and with
+``--fine`` also the fine pass's NeRF rows (1.5x).  ``--render NS`` then times ``chip_smoke.py``'s NeRF flagship
 render at NS views through the kernels, twice (the first call in the
 process, then a second).  The last lines are the card's name and power
 limit and one JSON object with every time.
@@ -53,8 +54,10 @@ def child(root: str, kinds: list[str], reps: int, dtype: str, fine: bool,
     code = PositionalEncoding(6, 3, 1.5, True).to(dev)
     code_vd = PositionalEncoding(6, 6, 1.5, True).to(dev)
     out = {}
-    cases = [c for c in CASES if c[0] in kinds
-             and (dtype == "bfloat16" or c[1] != "YOLO")]
+    cases = [(kind, widths, rows) for kind, widths, rows in CASES
+             if kind in kinds and fm.fits(
+                 getattr(cs, widths)["d_in"], getattr(cs, widths)["dL"],
+                 cs.H, cdt, kind, getattr(cs, widths)["d_out"])]
     if fine:
         cases += [(k, wd, rows * 3 // 2) for k, wd, rows in cases
                   if wd != "YOLO"]

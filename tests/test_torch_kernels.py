@@ -239,10 +239,10 @@ TC_CASES = [
 ]
 
 
-def _tc_case(device, widths, n_pre, rows, n_post=2, d_out=4):
+def _tc_case(device, widths, n_pre, rows, n_post=2, d_out=4,
+             dtype=torch.bfloat16):
     """widths: a key of TC_WIDTHS or a (mode, d_in, d_latent, hidden)."""
     mode, d_in, d_latent, hidden = TC_WIDTHS.get(widths, widths)
-    dtype = torch.bfloat16
     w = fm.stack_params(_mlp(hidden, d_latent, dtype, d_in=d_in,
                              d_out=d_out).to(device), dtype)
     # the first n_pre pre blocks (n_pre = 0: lin_in alone) and the first
@@ -333,3 +333,111 @@ def test_tc_kernel_raises_on_unaligned_latent(cuda_device):
     shifted = flat[1:].view(lat.shape)
     with pytest.raises(ValueError, match="16-byte"):
         fm.pre_combine_pe(base, shifted, w, code)
+
+
+# -- the f32 ring kernel (field_mlp_f32.cu: f32 modes 1 and 3) ----------------
+
+# (mode, d_in, d_latent, hidden): NeRF, use_code_viewdirs and YOLO widths,
+# then narrow ones (H / 64 columns a thread: 2 at 128, 3 at 192, 1 at 64,
+# 4 at 256) and z-features of 6 (one short slice of w_in)
+RING_WIDTHS = {
+    "nerf": ("pre_combine_pe", 42, 512, 512),
+    "viewdirs": ("pre_combine", 78, 512, 512),
+    "yolo": ("pre_combine_pe", 42, 1792, 512),
+    "narrow": ("pre_combine_pe", 42, 48, 128),
+    "narrow_z": ("pre_combine", 78, 64, 192),
+    "h64": ("pre_combine_pe", 42, 64, 64),
+    "z6": ("pre_combine", 6, 32, 256),
+}
+# one CTA's 32 rows and its edges, a cluster's 64 and its edges, 1,037
+# rows (33 row tiles: the last cluster's second CTA lies past the last
+# row) and 40,013
+RING_ROWS = (1, 31, 32, 33, 63, 64, 65, 1037, 40013)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", RING_ROWS)
+@pytest.mark.parametrize("n_pre", (0, 1, 3))
+@pytest.mark.parametrize("widths", list(RING_WIDTHS))
+def test_f32_ring_kernel_matches_twin(cuda_device, widths, n_pre, rows):
+    """The f32 ring kernel against its twin: lin_in alone, one and three
+    pre blocks, ragged rows, within 1e-4 x max|twin|."""
+    mode, args = _tc_case(cuda_device, RING_WIDTHS[widths], n_pre, rows,
+                          dtype=torch.float32)
+    assert fm.variant(mode, torch.float32) == "cuda_core_ring"
+    fm.reset_launches()
+    with torch.no_grad():
+        got = getattr(fm, mode)(*args)
+        ref = getattr(fm, mode + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert fm.launches[mode] == 1 and sum(fm.launches.values()) == 1
+    assert fm.variant_launches == {f"{mode}/cuda_core_ring": 1}
+    assert got.dtype == ref.dtype == torch.float32
+    assert got.shape == ref.shape == (rows, RING_WIDTHS[widths][3])
+    assert bool(torch.isfinite(got).all())
+    err = (got - ref).abs().max().item()
+    assert err <= TOL[torch.float32] * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cuda_core_library_refuses_pre_combine_modes(cuda_device):
+    """field_mlp.cu runs only f32 full_pe and post_combine: a launch of
+    mode 1 or 3 is refused before it reaches the card."""
+    lib = fm.load_library()["field_mlp"]
+    for mode in (fm.MODES["pre_combine_pe"], fm.MODES["pre_combine"]):
+        err = lib.field_mlp_launch(mode, 0, *([None] * 19), 64, 42, 64, 64,
+                                   1, 1, 4, 6, 1.5, None)
+        assert err != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["latent", "w_in", "wz", "w0", "w1", "bz"])
+def test_f32_ring_raises_on_unaligned(cuda_device, what):
+    """The ring kernel's bulk and TMA copies need 16-byte aligned sources:
+    a tensor 4 bytes off raises, and nothing launches (no fallback)."""
+    mode, (base, lat, w, code) = _tc_case(cuda_device, "h64", 1, 9,
+                                          dtype=torch.float32)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    if what == "latent":
+        lat = shifted(lat)
+    else:
+        w = dataclasses.replace(w, **{what: shifted(getattr(w, what))})
+    fm.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        fm.pre_combine_pe(base, lat, w, code)
+    assert sum(fm.launches.values()) == 0
+
+
+@pytest.mark.cuda
+def test_f32_ring_library_refuses_unaligned(cuda_device):
+    """The C entry point itself refuses a latent 4 bytes off."""
+    mode, (base, lat, w, code) = _tc_case(cuda_device, "h64", 1, 9,
+                                          dtype=torch.float32)
+    lib = fm.load_library()["field_mlp_f32"]
+    out = torch.empty((9, 64), device=cuda_device)
+    ptrs = [getattr(w, k).data_ptr() for k in fm.WEIGHT_NAMES[:8]]
+    for off in (0, 4):
+        err = lib.field_mlp_f32_launch(
+            1, base.data_ptr(), None, lat.data_ptr() + off, *ptrs,
+            out.data_ptr(), 8, 42, 64, 64, 1, 6, 1.5, None)
+        torch.cuda.synchronize()
+        assert (err != 0) is (off != 0)
+
+
+@pytest.mark.cuda
+def test_f32_ring_refuses_what_it_does_not_fit(cuda_device):
+    """No fallback: an f32 pre_combine whose z-features (80 rounded) are
+    wider than hidden (64) raises instead of taking another kernel or the
+    twin."""
+    mode, (zf, lat, w) = _tc_case(cuda_device, ("pre_combine", 78, 64, 64),
+                                  1, 9, dtype=torch.float32)
+    fm.reset_launches()
+    with pytest.raises(ValueError, match="does not take"):
+        fm.pre_combine(zf, lat, w)
+    assert sum(fm.launches.values()) == 0

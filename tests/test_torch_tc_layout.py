@@ -161,8 +161,11 @@ def test_fits_tensor_core_refusals():
     assert not fm.fits(42, 40, 512, bf16, "pre_combine_pe")    # dL % 16
     assert not fm.fits(42, 0, 512, bf16, "pre_combine")
     assert not fm.fits(520, 512, 512, bf16, "pre_combine")
-    # the CUDA-core variant keeps its own limits: f32 at dL 1792 does not fit
-    assert not fm.fits(42, 1792, 512, torch.float32, "pre_combine_pe")
+    # the CUDA-core variants keep their own limits: at dL 1792 f32 full_pe
+    # (field_mlp.cu, latent tile in shared memory) does not fit, f32
+    # pre_combine_pe (field_mlp_f32.cu, latent streamed) does
+    assert not fm.fits(42, 1792, 512, torch.float32, "full_pe")
+    assert fm.fits(42, 1792, 512, torch.float32, "pre_combine_pe")
 
 
 def test_tensor_core_shared_memory():
@@ -177,9 +180,12 @@ def test_tensor_core_shared_memory():
 @pytest.mark.parametrize("mode", list(fm.MODES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_routing(mode, dtype):
-    """Every bf16 mode takes the tensor-core kernel, every f32 mode the
-    CUDA-core one."""
-    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    """Every bf16 mode takes the tensor-core kernel, every f32 mode a
+    CUDA-core one: the ring kernel before the combine, field_mlp.cu
+    after it and for the whole MLP."""
+    want = "tensor_core" if dtype == torch.bfloat16 else (
+        "cuda_core_ring" if mode in ("pre_combine_pe", "pre_combine")
+        else "cuda_core")
     assert fm.variant(mode, dtype) == want
 
 

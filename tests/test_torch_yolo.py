@@ -5,11 +5,13 @@ with the same weights and draws.
 
 The ELAN backbone has no width knob, so these run it at its full 1792-d
 output, on 64x64 source images, with d_hidden 64 and 16 coarse samples.
-At these widths the JAX package's f32 field still takes its Pallas kernel
-(``pick_tile`` fits at d_hidden 64) while the port's ``fits`` refuses f32
-(a 32 x 1792 f32 latent tile needs 249,856 B of shared memory), so the f32
-comparison with ``use_fused_mlp = true`` is port-plain against JAX-kernel;
-in bf16 the port runs the kernels' plain twins."""
+At these widths the JAX package's f32 field takes its Pallas kernels
+(``pick_tile`` fits at d_hidden 64).  The port's ``fits`` takes f32 at
+NS=3 (pre_combine_pe streams the latent; post_combine holds no latent)
+but refuses it at NS=1 (full_pe's 32 x 1792 f32 latent tile needs 249,856
+B of shared memory), so the f32 comparison with ``use_fused_mlp = true``
+is port-twins against JAX-kernels at NS=3 and port-plain against
+JAX-kernel at NS=1; in bf16 the port runs the kernels' plain twins."""
 
 import numpy as np
 import pytest
