@@ -6,26 +6,24 @@
 Phases, each of which fails the run (non-zero exit) when its check fails:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile csrc/field_mlp_tc.cu (tensor cores: every bf16
-     mode), csrc/field_mlp_f32.cu (CUDA cores, weights and latent through
-     a ring: f32 pre_combine_pe and pre_combine) and csrc/field_mlp.cu
-     (CUDA cores: f32 full_pe and post_combine) with one nvcc each,
-     started together (sm_90a); print ptxas's register, spill and
-     shared-memory report, the tensor-core and ring kernels' at H = 512
-     apart (it fails when one of those spills);
+     mode) and csrc/field_mlp_f32.cu (CUDA cores, weights and latent
+     through a ring: every f32 mode) with one nvcc each, started together
+     (sm_90a); print ptxas's register, spill and shared-memory report,
+     every H = 512 instantiation of each (one per mode group) apart (it
+     fails when one of those spills or is missing);
   3. NeRF render: the flagship NeRF render (resnet34, 64 + 16 + 16
      samples, 128x128 source views, random weights from a seed) at NS=1
      and NS=2 in bf16 and f32, through make_model / make_renderer, with the
      PE kernels (full_pe; pre_combine_pe + post_combine; bf16 on the
-     tensor cores, f32 on the CUDA cores); then the same renders with
+     tensor cores, f32 on the CUDA-core ring); then the same renders with
      model.use_fused_mlp = false, compared with the kernel's;
   4. YOLO render: the YOLO flagship at full width (ELAN backbone, 1792-d
      latent, 5 x 512 ResnetFC, 21 outputs) at NS=3 in bf16, 16,384 rays of
      a 128x128 target view, through pre_combine_pe + post_combine, then
      plain, compared; the share of samples whose latent YOLO mode keeps;
-     the same render in f32, through pre_combine_pe (the ring kernel,
-     which streams the 1792-d latent) + post_combine where ``fits``
-     takes these widths, compared with plain; where it does not, no
-     kernel may launch;
+     the same render in f32, through pre_combine_pe + post_combine on
+     the ring kernel (which streams the 1792-d latent), compared with
+     plain;
   5. detection: encode 3 source views, YOLO rays on the 32-px cell grid of
      a 384x384 target view, YoloRenderer, decode_cells, nms_padded and
      tp_fp_fn_padded on the card against seeded target boxes; the same
@@ -38,9 +36,10 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
   7. kernels: each field-MLP kernel against its plain twin on the card, in
      f32 and bf16, on 40,013 rows (a ragged tail) and at the row counts of
      its launches in the renders above; pre_combine_pe and post_combine
-     also at the YOLO widths (bf16, and f32 where it fits); times of the
-     kernel, the twin and a cuBLAS addmm chain at the first render
-     launch's rows (TIMING_REPS launches per variant), beside the least
+     also at the YOLO widths (bf16 and f32), full_pe too in f32 (an NS=1
+     YOLO render's rows); times of the kernel, the twin and a cuBLAS
+     addmm chain at the first render launch's rows (TIMING_REPS launches
+     per variant), beside the least
      time the card needs for that work, with TFLOP/s, kernel/bound and
      kernel/library.
 The launch counters (per wrapper and per wrapper and variant) are zeroed
@@ -72,12 +71,11 @@ REPLACES = {
     "pre_combine": "pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:323",
 }
 KINDS = tuple(REPLACES)
-SOURCES = {"cuda_core": "pixelnerf_yolo_torch/csrc/field_mlp.cu",
-           "cuda_core_ring": "pixelnerf_yolo_torch/csrc/field_mlp_f32.cu",
+SOURCES = {"cuda_core_ring": "pixelnerf_yolo_torch/csrc/field_mlp_f32.cu",
            "tensor_core": "pixelnerf_yolo_torch/csrc/field_mlp_tc.cu"}
 # launches per timing: the tensor-core kernels take milliseconds, the f32
-# ring kernel ~0.1 s at a render launch's rows, field_mlp.cu's ~1 s
-TIMING_REPS = {"cuda_core": 3, "cuda_core_ring": 10, "tensor_core": 20}
+# ring kernel up to ~0.2 s at a render launch's rows
+TIMING_REPS = {"cuda_core_ring": 10, "tensor_core": 20}
 H, CL, NB = 512, 3, 5
 # field widths: NeRF flagship (PE of xyz 42, viewdirs appended), the same
 # with use_code_viewdirs (PE of [xyz, viewdirs], 78), YOLO (1792-d latent,
@@ -229,13 +227,18 @@ def library_chain(kind, *args):
     return lin(torch.relu(x), w.w_out, w.b_out).float()
 
 
+# kernel instantiations at each hidden width, one per group of modes:
+# the pre-combine half (modes 1 and 3), the whole chain (0), the
+# post-combine half (2)
+MODE_GROUPS = 3
+
+
 def print_kernel_reports() -> bool:
     """The ptxas lines (registers, spills, stack, shared memory) of every
-    H = 512 instantiation of the tensor-core kernel (one per group of
-    modes: the pre-combine half, the whole chain, the post-combine half)
-    and of the f32 ring kernel, with their dynamic shared memory.  False
-    when one spills: a spill there costs several times the kernel's
-    time."""
+    H = 512 instantiation of the tensor-core kernel and of the f32 ring
+    kernel (MODE_GROUPS each), with their dynamic shared memory.  False
+    when one spills or is missing: a spill there costs several times the
+    kernel's time."""
     import re
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -260,8 +263,9 @@ def print_kernel_reports() -> bool:
                 print(f"{label}, H=512: {report} | dynamic shared memory "
                       f"{smem} B {'ok' if good else 'FAILED: spills'}",
                       flush=True)
-        if not found:
-            print(f"FAILED: no ptxas report of the H = 512 {label}")
+        if found != MODE_GROUPS:
+            print(f"FAILED: {found} ptxas reports of the H = 512 {label}, "
+                  f"expected {MODE_GROUPS}")
             ok = False
     return ok
 
@@ -343,7 +347,7 @@ def check_kernel(kind, spec, dtype_name, rows_list, device):
 def check_kernels(device, render_rows, yolo_rows):
     """Phase 7.  render_rows[kind] lists the row counts of that kernel's
     launches in the NeRF renders (coarse pass first, where its time is
-    taken); yolo_rows[kind] those of the YOLO render."""
+    taken); yolo_rows[kind] those of a YOLO render (full_pe: at NS=1)."""
     ok, results = True, {}
     for kind in KINDS:
         spec = VIEWDIRS if kind == "pre_combine" else NERF
@@ -352,20 +356,14 @@ def check_kernels(device, render_rows, yolo_rows):
                 kind, spec, dtype_name, [CHECK_ROWS, *render_rows[kind]],
                 device)
             ok &= kok
-    import torch
-
-    from pixelnerf_yolo_torch.ops import field_mlp as fm
-
     for kind in ("pre_combine_pe", "post_combine"):
         kok, results[(kind, "yolo")] = check_kernel(
             kind, YOLO, "bfloat16", [CHECK_ROWS, *yolo_rows[kind]], device)
         ok &= kok
-        if fm.fits(YOLO["d_in"], YOLO["dL"], H, torch.float32, kind,
-                   YOLO["d_out"]):
-            kok, results[(kind, "yolo_f32")] = check_kernel(
-                kind, YOLO, "float32", [CHECK_ROWS, *yolo_rows[kind]],
-                device)
-            ok &= kok
+    for kind in ("full_pe", "pre_combine_pe", "post_combine"):
+        kok, results[(kind, "yolo_f32")] = check_kernel(
+            kind, YOLO, "float32", [CHECK_ROWS, *yolo_rows[kind]], device)
+        ok &= kok
     return ok, results
 
 
@@ -599,32 +597,23 @@ def yolo_path(models, device):
     del got, plain, cond
     torch.cuda.empty_cache()
 
-    # f32 at 1792-d latents: through pre_combine_pe (the ring kernel
-    # streams the latent) and post_combine where ``fits`` takes the
-    # widths; where it does not (a latent tile in shared memory), the
-    # plain path runs and no kernel may launch
+    # f32 at 1792-d latents: pre_combine_pe and post_combine on the ring
+    # kernel (which streams the latent)
     model32, renderer32 = models["float32"]
-    mlp = model32.mlp_coarse
-    want = model32._can_fuse(mlp, 3, model32._first_kernel(
-        mlp, 3, model32._pe_fusible()))
     fm.reset_launches()
     out32, sec32, _, _ = yolo_render(model32, renderer32, n_rays, device,
                                      "auto")
     launches32 = dict(fm.variant_launches)
     print(f"render YOLO NS=3 float32 rays={n_rays} kernels: {sec32:.3f} s, "
-          f"{n_rays / sec32:.1f} rays/s; launches {launches32} (fits: "
-          f"{want})", flush=True)
-    if want:
-        good = (launched(launches32, "pre_combine_pe", "cuda_core_ring") > 0
-                and launched(launches32, "post_combine", "cuda_core") > 0)
-        plain32, psec32, _, _ = yolo_render(model32, renderer32, n_rays,
-                                            device, "false")
-        print(f"render YOLO NS=3 float32 rays={n_rays} plain:   "
-              f"{psec32:.3f} s, {n_rays / psec32:.1f} rays/s")
-        good &= compare_yolo(out32, plain32, YOLO_TOL["float32"])
-        del plain32
-    else:
-        good = not launches32 and bool(torch.isfinite(out32).all())
+          f"{n_rays / sec32:.1f} rays/s; launches {launches32}", flush=True)
+    good = (launched(launches32, "pre_combine_pe", "cuda_core_ring") > 0
+            and launched(launches32, "post_combine", "cuda_core_ring") > 0)
+    plain32, psec32, _, _ = yolo_render(model32, renderer32, n_rays, device,
+                                        "false")
+    print(f"render YOLO NS=3 float32 rays={n_rays} plain:   "
+          f"{psec32:.3f} s, {n_rays / psec32:.1f} rays/s")
+    good &= compare_yolo(out32, plain32, YOLO_TOL["float32"])
+    del plain32
     if not good:
         print("FAILED: the f32 YOLO render")
     ok &= good
@@ -779,8 +768,8 @@ def run(device) -> bool:
 
     t0 = time.perf_counter()
     fm.load_library()
-    print(f"build: three libraries in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc in parallel)", flush=True)
+    print(f"build: {len(fm.SOURCES)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)", flush=True)
     for name, info in fm.build_info.items():
         print(f"  {name}: {info['path']}, nvcc {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -833,7 +822,8 @@ def run(device) -> bool:
     # row counts of the kernels' launches in the renders above: a chunk of
     # rays times the coarse samples, then times the fine pass's union;
     # full_pe at NS=1, pre_combine_pe / pre_combine (x 2 views) and
-    # post_combine at NS=2; YOLO: a chunk x 128 samples (x 3 views)
+    # post_combine at NS=2; YOLO: a chunk x 128 samples (x 3 views), and
+    # full_pe's a chunk of an NS=1 render
     r = nerf["bfloat16"][1]
     cb1 = r._chunk_rays(RENDERS[0][2], 1)
     cb2 = r._chunk_rays(RENDERS[2][2], 2)
@@ -843,7 +833,11 @@ def run(device) -> bool:
                    "post_combine": [cb2 * k for k in ks],
                    "pre_combine": [cb2 * k * 2 for k in ks]}
     k_yolo = yolo["bfloat16"][1].n_coarse
-    yolo_rows = {"pre_combine_pe": [yolo_cb * k_yolo * 3],
+    n_yolo = YOLO_SIZE * YOLO_SIZE
+    cb_ns1 = yolo["bfloat16"][1].chunk_rays_for(n_yolo, 1, YOLO["dL"])
+    cb_ns1 = -(-n_yolo // -(-n_yolo // cb_ns1))  # split evenly
+    yolo_rows = {"full_pe": [cb_ns1 * k_yolo],
+                 "pre_combine_pe": [yolo_cb * k_yolo * 3],
                  "post_combine": [yolo_cb * k_yolo]}
     del nerf, yolo, viewdirs
     torch.cuda.empty_cache()

@@ -1,32 +1,47 @@
-// Fused pixelNeRF field MLP (ResnetFC), pre-combine half, f32, on Hopper
-// CUDA cores (sm_90a).
+// Fused pixelNeRF field MLP (ResnetFC), f32, on Hopper CUDA cores (sm_90a).
 //
-// Replaces, for f32, two Pallas TPU kernels of the JAX package's
+// Replaces, for f32, the four Pallas TPU kernels of the JAX package's
 // pixelnerf_yolo_tpu/ops/pallas/fused_mlp.py:
-//   mode 1  pre_combine_pe  <- fused_pre_combine_pe (_pre_combine_pe_kernel)
-//   mode 3  pre_combine     <- fused_pre_combine    (_pre_combine_kernel)
-// (bf16 runs on the tensor cores in field_mlp_tc.cu; f32 modes 0 and 2 on
-// the CUDA cores in field_mlp.cu).  Both modes run lin_in, then n_pre x
-// (lin_z, fc_0, fc_1), and write h (n, H) f32; mode 1 computes the
-// positional encoding of [xyz, viewdirs] in the kernel, mode 3 loads
-// given z-features.  The rounding points are the plain twins'
-// (ops/field_mlp.py): every Dense is an f32 accumulation plus an f32 bias,
-// the residual add is f32, relu where the reference applies it; the PE is
-// sin(f * x + phase) with products and sums rounded separately (no FMA
-// contraction), as in field_mlp.cu.  Only the order of summation differs.
+//   mode 0  full_pe         <- fused_full_pe         (_full_pe_kernel)
+//   mode 1  pre_combine_pe  <- fused_pre_combine_pe  (_pre_combine_pe_kernel)
+//   mode 2  post_combine    <- fused_post_combine    (_post_combine_kernel)
+//   mode 3  pre_combine     <- fused_pre_combine     (_pre_combine_kernel)
+// (bf16 runs on the tensor cores in field_mlp_tc.cu).  Modes 0, 1 and 3
+// run lin_in, then n_pre x (lin_z, fc_0, fc_1): modes 0 and 1 on the
+// positional encoding of [xyz, viewdirs], computed in the kernel, mode 3
+// on given z-features; modes 1 and 3 write h (n, H) f32.  Mode 0 goes on,
+// and mode 2 starts from a given h: n_post x (fc_0, fc_1), then lin_out
+// on relu(x), written as (n, d_out) f32.  The rounding points are the
+// plain twins' (ops/field_mlp.py): every Dense is an f32 accumulation plus
+// an f32 bias, the residual add is f32, relu where the reference applies
+// it; the PE is sin(f * x + phase) with products and sums rounded
+// separately (no FMA contraction).  Only the order of summation differs.
 // No TF32: it keeps about three digits, and the f32 path is the parity
 // mode that holds the port to the JAX package.
 //
-// What bounds it: at H = dL = 512, n_pre = 3, a row costs 2.38 M
-// multiply-adds (4.35 M at dL = 1792) against ~4 KB of input and output,
-// so the work is bound by the f32 FMA rate (67 TFLOP/s: 74.5 ms for
-// 1,048,576 rows of mode 1).  The weights (9.5 MB f32 at dL 512) stay in
-// the 50 MB L2 but cannot sit in an SM's 227 KB, so they stream:
+// What bounds it: the f32 FMA rate (67 TFLOP/s) in every mode.  At H =
+// dL = 512 a row costs 2.38 M multiply-adds before the combine (4.35 M at
+// dL = 1792) and 1.05 M after it (two post blocks and lin_out), against
+// ~4 KB of input and output.  At one render launch's rows: mode 0 107.4
+// ms (1,048,576 rows), mode 1 74.5 ms (the same), mode 2 16.4 ms (524,288
+// rows; 6.0 ms for 190,720 rows at d_out 21).  The weights (13.7 MB f32
+// at dL 512) stay in the 50 MB L2 but cannot sit in an SM's 227 KB, so
+// they stream:
+//   - The walk: one sequence of ring stages per launch (walk_stages,
+//     mirrored by ops/field_mlp.py::f32_schedule): lin_in's slices, per
+//     pre block lin_z's, fc_0's and fc_1's; per post block fc_0's and
+//     fc_1's (of w0p[b], w1p[b]); lin_out's.  Mode 2's walk starts at the
+//     post blocks; modes 1 and 3 end before them.
 //   - The weight slices need no packing: rows [k, k + kBK) of a row-major
-//     (K, H) matrix (w_in, wz[b], w0[b], w1[b]) are one contiguous block,
-//     copied by one 1-D bulk copy (cp.async.bulk) into a ring stage with
-//     an mbarrier transaction count.  lin_in's last slice holds the
-//     d_in % kBK rows that are left; the consumers walk only those.
+//     (K, H) matrix (w_in, wz[b], w0[b], w1[b], w0p[b], w1p[b]) are one
+//     contiguous block, copied by one 1-D bulk copy (cp.async.bulk) into
+//     a ring stage with an mbarrier transaction count.  lin_in's last
+//     slice holds the d_in % kBK rows that are left; the consumers walk
+//     only those.  w_out (H, d_out) is row-major too, so a run of its rows
+//     is one block: as many rows a stage as a slot's kBK x H floats hold,
+//     a multiple of 8 (each CTA's piece a multiple of 16 bytes), balanced
+//     over the fewest stages (out_rows): one stage of 512 rows at d_out 4
+//     (8 KB), two of 256 at d_out 21.
 //   - The copies run kLookahead stages ahead of the walk: as a warp starts
 //     stage t, if stage t + kLookahead falls to it (the warps take the
 //     stages in turn, stage s to warp s % 8), its lane 0 waits until every
@@ -52,10 +67,14 @@
 //     thread an 8-row x H/64-column tile of x and of the layer's
 //     accumulators (64 + 64 registers at H = 512), always the same rows
 //     and columns, so lin_in, lin_z and fc_1 add into x where it lies.
+//     Mode 2 fills the tile straight from h with 16-byte loads (the
+//     reverse of the h store), issued once the first kLookahead stages
+//     are in flight, so the loads overlap the copies.
 //     One k-major activation buffer A (H x 32) holds the A operand of the
-//     other layers: the z-features, relu(x) before fc_0, relu(fc_0's
-//     output) before fc_1.  At H = 512 that is 64 KB, and the ring gets
-//     kStages = 4 stages of 16 x 512 weights + 32 x 16 latent (34 KB).
+//     other layers: the z-features, relu(x) before fc_0 and lin_out,
+//     relu(fc_0's output) before fc_1.  At H = 512 that is 64 KB, and the
+//     ring gets kStages = 4 stages of 16 x 512 weights + 32 x 16 latent
+//     (34 KB).
 //   - The FMAs are fed by 128-bit shared loads: lanes are 4 across rows
 //     (lane % 4) x 8 across columns (lane / 4); a thread's rows 4m + rg
 //     (m < 8) sit side by side in A (row r at position (r % 4) * 8 + r / 4
@@ -71,6 +90,20 @@
 //     previous stage's last FMAs, which cover their latency, and a layer's
 //     bias is loaded before its first stage.  255 registers a thread, no
 //     spill at H = 512.
+//   - lin_out (d_out <= 256) reads A = relu(x) the same way: a thread
+//     takes rows 4m + rg and, by lane group og = lane / 4, one column of
+//     each of its warp's groups of 8 columns, and sums over all of K in
+//     order (a sum split over K moved the f32 renders off plain): per k
+//     one or two LDS.128 and one LDS of w_out's row (8 consecutive floats
+//     across the warp, one wavefront) feed 4 or 8 FMAs a column.  With at
+//     most 4 groups (d_out <= 32: NeRF's 4 and YOLO's 21) two warps share
+//     a group, 4 rows a thread each; with more, warp w takes groups w + 8
+//     j, j < 4.  The loop has no branch, so the loads of 8 k steps issue
+//     together.
+//   - One kernel instantiation per mode group (1 and 3; 0; 2) at each H:
+//     code of one group does not sit in another's kernel (in
+//     field_mlp_tc.cu such code slowed a kernel by ~4% where it never
+//     ran).
 //   - Design runs on the H100 (scripts/bench_f32_design.py, PERF.md):
 //     clusters of 1 run within 1-4% of 2; copies 1 or 2 stages ahead run
 //     alike, 3 ahead (the slot of the stage just read) ~10% slower; 2
@@ -112,12 +145,16 @@ constexpr int kRowLanes = 4;               // lanes across rows
 constexpr int kColLanes = 8;               // lanes across columns
 constexpr int kTM = kRows / kRowLanes;     // rows a thread: 8
 constexpr int kLatBytes = kRows * kBK * 4;
+constexpr int kOutGroups = 4;              // lin_out column groups a warp
+constexpr int kMaxOut = 8 * kWarps * kOutGroups;  // d_out <= 256
 constexpr float kHalfPi = 1.57079637050628662109375f;  // float32(pi / 2)
 static_assert(kBK % 4 == 0, "stage depth");
 static_assert(0 < kLookahead && kLookahead < kStages, "lookahead");
+// lin_out's stages hold a multiple of 8 rows: 32 bytes a row of d_out
+static_assert(kCluster == 1 || kCluster == 2, "16-byte pieces of w_out");
 
 struct Params {
-  const float* base;   // (n, 6) [xyz, viewdirs], mode 1
+  const float* base;   // (n, 6) [xyz, viewdirs], modes 0, 1
   const float* zfeat;  // (n, d_in), mode 3
   const float* w_in;   // (d_in, H)
   const float* b_in;   // (H,)
@@ -127,13 +164,36 @@ struct Params {
   const float* b0;
   const float* w1;
   const float* b1;
-  float* out;          // (n, H)
+  float* out;          // (n, H) modes 1, 3; (n, d_out) modes 0, 2
   int n_rows, d_in, d_latent, n_pre, num_freqs, mode;
   float freq_factor;
+  const float* h;      // (n, H), mode 2
+  const float* w0p;    // (n_post, H, H)
+  const float* b0p;    // (n_post, H)
+  const float* w1p;
+  const float* b1p;
+  const float* w_out;  // (H, d_out)
+  const float* b_out;  // (d_out,)
+  int n_post, d_out;   // modes 0, 2
 };
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
+}
+
+// lin_out's ring stages: the fewest that hold w_out's `hidden` rows of
+// d_out floats at no more than a slot's kBK x hidden floats and a multiple
+// of 8 rows each (0 without lin_out, d_out 0); and the rows of each but
+// the last, balanced
+__host__ __device__ inline int out_stages(int hidden, int d_out) {
+  if (d_out <= 0) return 0;
+  const int fit = kBK * hidden / d_out / 8 * 8;
+  return (hidden + fit - 1) / fit;
+}
+
+__host__ __device__ inline int out_rows(int hidden, int d_out) {
+  const int n = out_stages(hidden, d_out);
+  return round_up((hidden + n - 1) / n, 8);
 }
 
 // -- PTX helpers -------------------------------------------------------------
@@ -307,11 +367,17 @@ struct Stage {
   }
 };
 
-// Stages of the walk: lin_in's slices (the last may be short), then per
-// pre block lin_z's (each with its latent slice), fc_0's and fc_1's.
-int walk_stages(int d_in, int d_latent, int hidden, int n_pre) {
-  return (d_in + kBK - 1) / kBK + n_pre * (d_latent + 2 * hidden) / kBK;
+// Stages of the walk: lin_in's slices (the last may be short), per pre
+// block lin_z's (each with its latent slice), fc_0's and fc_1's, per post
+// block fc_0's and fc_1's, then lin_out's.
+int walk_stages(int d_in, int d_latent, int hidden, int n_pre, int n_post,
+                int d_out) {
+  return (d_in + kBK - 1) / kBK + n_pre * (d_latent + 2 * hidden) / kBK +
+         n_post * 2 * hidden / kBK + out_stages(hidden, d_out);
 }
+
+// Mode groups, one kernel instantiation each
+enum Group { kWhole = 0, kPre = 1, kPost = 2 };
 
 // Issues stage s of the walk (below) once every warp of the cluster has
 // released its slot's previous use: this CTA's 1 / kCluster of the weight
@@ -319,14 +385,30 @@ int walk_stages(int d_in, int d_latent, int hidden, int n_pre) {
 // slice.  One thread.  Out of line (a warp runs it once in 8 stages), so
 // its arguments are the grid constants' addresses and the walk's numbers,
 // by value.
-template <int kH>
+template <int kH, int kGroup>
 __device__ __noinline__ void issue(const CUtensorMap* lat_map,
                                    const Params* p, uint32_t base, int n_in,
-                                   int n_lat, int per_blk, int s) {
+                                   int n_lat, int per_blk, int pre, int s) {
   constexpr int kNH = kH / kBK;  // stages of fc_0 (and of fc_1)
   const float* src;
-  int rows = kBK, lat_col = -1;
-  if (s < n_in) {
+  int rows = kBK, width = kH, lat_col = -1;
+  if (kGroup != kPre && (kGroup == kPost || s >= pre)) {
+    // after the combine: per post block fc_0's, fc_1's; lin_out's
+    const int q = s - pre;
+    const int n_post_st = p->n_post * 2 * kNH;
+    if (q < n_post_st) {
+      const int blk = q / (2 * kNH);
+      const int u = q - blk * 2 * kNH;
+      src = (u < kNH ? p->w0p : p->w1p) +
+            ((size_t)blk * kH + (u % kNH) * kBK) * kH;
+    } else {
+      const int step = out_rows(kH, p->d_out);
+      const int first = (q - n_post_st) * step;
+      src = p->w_out + (size_t)first * p->d_out;
+      rows = min(step, kH - first);
+      width = p->d_out;
+    }
+  } else if (s < n_in) {
     src = p->w_in + (size_t)s * kBK * kH;
     rows = min(kBK, p->d_in - s * kBK);
   } else {
@@ -343,8 +425,8 @@ __device__ __noinline__ void issue(const CUtensorMap* lat_map,
     }
   }
   const Stage<kH> st(base, s);
-  const uint32_t bytes = rows * kH * 4;
-  const uint32_t piece = bytes / kCluster;  // a multiple of 128
+  const uint32_t bytes = rows * width * 4;
+  const uint32_t piece = bytes / kCluster;  // a multiple of 16
   const uint32_t rank = cluster_rank();
   mbar_wait(st.empty, st.parity ^ 1);
   mbar_expect_tx(st.full, bytes + (lat_col >= 0 ? kLatBytes : 0));
@@ -356,28 +438,57 @@ __device__ __noinline__ void issue(const CUtensorMap* lat_map,
                 blockIdx.x * kRows, st.full);
 }
 
-// The walk's schedule: stage s is lin_in's slice s (s < n_in; the last
-// may be short), else place u of pre block b, (s - n_in) = b per_blk + u:
-// lin_z's slices (u < n_lat, each with its latent slice), fc_0's, fc_1's.
-// Also the consumers' position: the ring (its shared address and a
-// generic pointer) and the next stage t.
+// The walk's schedule of group kGroup: stage s is lin_in's slice s (s <
+// n_in; the last may be short), else, below pre, place u of pre block b,
+// (s - n_in) = b per_blk + u: lin_z's slices (u < n_lat, each with its
+// latent slice), fc_0's, fc_1's; from pre on, the post blocks' and
+// lin_out's (groups 0 and 2; group 2 has no pre stages).  Also the
+// consumers' position: the ring (its shared address and a generic
+// pointer) and the next stage t.
+template <int kH, int kGroup>
 struct Walk {
   uint32_t base;
   const float* ring;
   int t = 0;
-  int n_in, n_lat, per_blk, total;
-  __device__ Walk(const Params& p, int kh, unsigned char* sm)
+  int n_in = 0, n_lat = 0, per_blk = 0, pre = 0, total;
+  __device__ Walk(const Params& p, unsigned char* sm)
       : base(smem_u32(sm)), ring(reinterpret_cast<const float*>(sm)) {
-    n_in = (p.d_in + kBK - 1) / kBK;
-    n_lat = p.d_latent / kBK;
-    per_blk = n_lat + 2 * (kh / kBK);
-    total = n_in + p.n_pre * per_blk;
+    if constexpr (kGroup != kPost) {
+      n_in = (p.d_in + kBK - 1) / kBK;
+      n_lat = p.d_latent / kBK;
+      per_blk = n_lat + 2 * (kH / kBK);
+      pre = n_in + p.n_pre * per_blk;
+    }
+    total = pre;
+    if constexpr (kGroup != kPre)
+      total += p.n_post * 2 * (kH / kBK) + out_stages(kH, p.d_out);
   }
   // issues stage s (s < total)
-  template <int kH>
   __device__ void issue_stage(const CUtensorMap* lat_map, const Params* p,
                               int s) const {
-    issue<kH>(lat_map, p, base, n_in, n_lat, per_blk, s);
+    issue<kH, kGroup>(lat_map, p, base, n_in, n_lat, per_blk, pre, s);
+  }
+  // stage t's copies: issue stage t + kLookahead if it falls to this warp,
+  // then wait for stage t; returns the slot
+  __device__ __forceinline__ const float* begin(const CUtensorMap* lat_map,
+                                                const Params* p, int t,
+                                                int warp, int lane) const {
+    const int ahead = t + kLookahead;
+    if (lane == 0 && ahead % kWarps == warp && ahead < total)
+      issue_stage(lat_map, p, ahead);
+    const Stage<kH> st(base, t);
+    mbar_wait(st.full, st.parity);
+    return ring + st.slot * (stage_bytes<kH>() / 4);
+  }
+  // every lane of the warp has read stage t's slot: one release per warp
+  // on every CTA of the cluster
+  __device__ __forceinline__ void release(int t, int lane) const {
+    __syncwarp();
+    if (lane == 0) {
+      const Stage<kH> st(base, t);
+#pragma unroll
+      for (int c = 0; c < kCluster; ++c) mbar_arrive_cluster(st.empty, c);
+    }
   }
 };
 
@@ -392,18 +503,23 @@ __device__ __forceinline__ void fma_tile(Tile<kH>& acc, const float (&a)[kTM],
       acc[m][i] = fmaf(a[m], w[i], acc[m][i]);
 }
 
+// The thread's 8 rows of A's k-row `arow` (two LDS.128)
+__device__ __forceinline__ void load_rows(float (&a)[kTM], const float* arow) {
+  const float4 lo = reinterpret_cast<const float4*>(arow)[0];
+  const float4 hi = reinterpret_cast<const float4*>(arow)[1];
+  a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
+  a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
+}
+
 // The operands of one k step on the k-major buffer: the thread's 8 rows
-// of A's k-row (two LDS.128) and its columns of the weight slice's row.
+// of A's k-row and its columns of the weight slice's row.
 template <int kH>
 struct Step {
   float a[kTM];
   float w[Cols<kH>::kTN];
   __device__ __forceinline__ void load(const float* arow, const float* wrow,
                                        int warp, int cg) {
-    const float4 lo = reinterpret_cast<const float4*>(arow)[0];
-    const float4 hi = reinterpret_cast<const float4*>(arow)[1];
-    a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
-    a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
+    load_rows(a, arow);
     load_cols<kH>(wrow, warp, cg, w);
   }
 };
@@ -427,14 +543,13 @@ __device__ __forceinline__ float part(const float4& v, int e) {
 // The bias is loaded before the first stage.  The operands of a stage's
 // first k step are loaded before the previous stage's last FMAs (which
 // then cover their latency), once the stage's copies have landed.
-template <int kH, bool kLatent>
+template <int kH, bool kLatent, class Walk_>
 __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
                                         int K, const float* __restrict__ bias,
-                                        Walk& walk,
+                                        Walk_& walk,
                                         const CUtensorMap* lat_map,
                                         const Params* p) {
   using C = Cols<kH>;
-  constexpr int kSlot = stage_bytes<kH>() / 4;  // floats a slot
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rg = lane % kRowLanes, cg = lane / kRowLanes;
   float b[C::kTN];
@@ -444,29 +559,8 @@ __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
 #pragma unroll
     for (int i = 0; i < C::kTN; ++i) acc[m][i] = 0.f;
 
-  // stage t's copies: issue stage t + kLookahead if it falls to this warp,
-  // then wait for stage t; returns the slot's weights
-  auto begin = [&](int t) {
-    const int ahead = t + kLookahead;
-    if (lane == 0 && ahead % kWarps == warp && ahead < walk.total)
-      walk.issue_stage<kH>(lat_map, p, ahead);
-    const Stage<kH> st(walk.base, t);
-    mbar_wait(st.full, st.parity);
-    return walk.ring + st.slot * kSlot;
-  };
-  // every lane of the warp has read stage t's slot: one release per warp
-  // on every CTA of the cluster
-  auto release = [&](int t) {
-    __syncwarp();
-    if (lane == 0) {
-      const Stage<kH> st(walk.base, t);
-#pragma unroll
-      for (int c = 0; c < kCluster; ++c) mbar_arrive_cluster(st.empty, c);
-    }
-  };
-
   const int n_st = (K + kBK - 1) / kBK;
-  const float* W = begin(walk.t);
+  const float* W = walk.begin(lat_map, p, walk.t, warp, lane);
   if constexpr (kLatent) {
     float4 l[kTM];
     float w[C::kTN];
@@ -486,7 +580,7 @@ __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
             load_lat(l2, W + kBK * kH, rg, kq + 1);
             load_cols<kH>(W + (4 * kq + 4) * kH, warp, cg, w2);
           } else if (j + 1 < n_st) {
-            const float* W2 = begin(walk.t + 1);
+            const float* W2 = walk.begin(lat_map, p, walk.t + 1, warp, lane);
             load_lat(l2, W2 + kBK * kH, rg, 0);
             load_cols<kH>(W2, warp, cg, w2);
             W = W2;
@@ -501,7 +595,7 @@ __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
 #pragma unroll
         for (int m = 0; m < kTM; ++m) l[m] = l2[m];
       }
-      release(walk.t);
+      walk.release(walk.t, lane);
     }
   } else {
     Step<kH> cur;
@@ -519,12 +613,12 @@ __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
         }
         Step<kH> nxt;
         if (j + 1 < n_st) {
-          const float* W2 = begin(walk.t + 1);
+          const float* W2 = walk.begin(lat_map, p, walk.t + 1, warp, lane);
           nxt.load(A + kBK * kRows, W2, warp, cg);
           W = W2;
         }
         fma_tile<kH>(acc, cur.a, cur.w);
-        release(walk.t);
+        walk.release(walk.t, lane);
         cur = nxt;
       } else {
         // lin_in's short last slice
@@ -534,7 +628,7 @@ __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
           cur.load(A + kk * kRows, W + kk * kH, warp, cg);
           fma_tile<kH>(acc, cur.a, cur.w);
         }
-        release(walk.t);
+        walk.release(walk.t, lane);
       }
     }
   }
@@ -542,6 +636,109 @@ __device__ __forceinline__ void product(Tile<kH>& acc, const float* abuf,
   for (int m = 0; m < kTM; ++m)
 #pragma unroll
     for (int i = 0; i < C::kTN; ++i) acc[m][i] += b[i];
+}
+
+// acc[j][m] += A[k0 + kk][pos(4 (m0 + m) + rg)] W[kk][col[j]] for kk in
+// [0, nk) (a multiple of 8), in order, with A at the thread's first row
+// m0 (kTR = 8 rows from m0 = 0, or 4 from m0 = 0 or 4: one or two LDS.128
+// a k) and W the lin_out stage (w_out's rows from k0): kNJ LDS a k.  No
+// branch in the loop, so the loads of 8 k steps are issued together.
+template <int kNJ, int kTR>
+__device__ __forceinline__ void lin_out_rows(float (&acc)[kOutGroups][kTM],
+                                             const float* A, const float* wst,
+                                             int k0, int nk, int d_out,
+                                             const int (&col)[kOutGroups]) {
+#pragma unroll 1
+  for (int kk = 0; kk < nk; kk += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float* arow = A + (k0 + kk + u) * kRows;
+      float a[kTM];
+      if constexpr (kTR == kTM) {
+        load_rows(a, arow);
+      } else {
+        const float4 v = *reinterpret_cast<const float4*>(arow);
+        a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+      }
+      const float* wrow = wst + (kk + u) * d_out;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        const float w = wrow[col[j]];
+#pragma unroll
+        for (int m = 0; m < kTR; ++m) acc[j][m] = fmaf(a[m], w, acc[j][m]);
+      }
+    }
+  }
+}
+
+// lin_out: out[r][o] = sum_k A[k][pos(r)] w_out[k][o] + b_out[o] for the
+// CTA's valid rows, with A = relu(x) in the k-major buffer and w_out's
+// rows from lin_out's ring stages (row-major, d_out floats a row).  Each
+// output is one thread's sum over k in order (so it is the plain twin's
+// f32 value where cuBLAS sums in order too: the f32 renders agree with
+// plain to the bit; a sum split over K moved them by up to 1e-4).  The
+// columns come in groups of 8, one column a lane group og = lane / 4; the
+// thread's rows are its tile's (4m + rg).  With at most 4 groups (d_out <=
+// 32) two warps take each group, 4 of the thread's rows each (m in [0, 4)
+// or [4, 8)); with more, warp w takes groups w + 8 j, j < kOutGroups, all
+// 8 rows.
+template <int kH, class Walk_>
+__device__ __forceinline__ void lin_out(const float* abuf, Walk_& walk,
+                                        const CUtensorMap* lat_map,
+                                        const Params* p, int row0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane % kRowLanes, og = lane / kRowLanes;
+  const int d_out = p->d_out;
+  const int groups = (d_out + 7) / 8;
+  const bool halves = groups <= kWarps / 2;
+  // this warp's groups g0 + 8 j (j < nj) and its rows 4 (m0 + m) + rg
+  const int g0 = halves ? warp / 2 : warp;
+  const int m0 = halves ? warp % 2 * (kTM / 2) : 0;
+  int nj = 0;
+  while (nj < kOutGroups && g0 + kWarps * nj < groups &&
+         (!halves || nj == 0))
+    ++nj;
+  float acc[kOutGroups][kTM];
+#pragma unroll
+  for (int j = 0; j < kOutGroups; ++j)
+#pragma unroll
+    for (int m = 0; m < kTM; ++m) acc[j][m] = 0.f;
+  // a column past d_out reads the last one; it is never stored
+  int col[kOutGroups];
+#pragma unroll
+  for (int j = 0; j < kOutGroups; ++j)
+    col[j] = min(8 * (g0 + kWarps * j) + og, d_out - 1);
+  const float* A = abuf + rg * kTM + m0;
+  const int step = out_rows(kH, d_out);  // w_out rows a stage
+  for (int k0 = 0; k0 < kH; k0 += step, ++walk.t) {
+    const float* wst = walk.begin(lat_map, p, walk.t, warp, lane);
+    const int nk = min(step, kH - k0);
+    if (halves) {
+      if (nj) lin_out_rows<1, kTM / 2>(acc, A, wst, k0, nk, d_out, col);
+    } else {
+      switch (nj) {
+        case 1: lin_out_rows<1, kTM>(acc, A, wst, k0, nk, d_out, col); break;
+        case 2: lin_out_rows<2, kTM>(acc, A, wst, k0, nk, d_out, col); break;
+        case 3: lin_out_rows<3, kTM>(acc, A, wst, k0, nk, d_out, col); break;
+        case 4: lin_out_rows<4, kTM>(acc, A, wst, k0, nk, d_out, col); break;
+        default: break;
+      }
+    }
+    walk.release(walk.t, lane);
+  }
+  const int rows = halves ? kTM / 2 : kTM;  // the thread's
+#pragma unroll
+  for (int j = 0; j < kOutGroups; ++j) {
+    const int o = 8 * (g0 + kWarps * j) + og;
+    if (j >= nj || o >= d_out) continue;
+    const float b = p->b_out[o];
+#pragma unroll
+    for (int m = 0; m < kTM; ++m) {
+      const int row = row0 + kRowLanes * (m0 + m) + rg;
+      if (m < rows && row < p->n_rows)
+        p->out[(size_t)row * d_out + o] = acc[j][m] + b;
+    }
+  }
 }
 
 enum Epilogue { kSet = 0, kAdd = 1 };
@@ -574,11 +771,31 @@ __device__ __forceinline__ void store_relu(float* abuf, const Tile<kH>& v) {
   }
 }
 
-// A[col][pos(r)] for the CTA's rows, col < dz = round_up(d_in, kBK): mode 1
-// the positional encoding [x, sin(f_0 x), cos(f_0 x), ..., vd] with
-// cos(t) = sin(t + pi/2), products and sums rounded separately as in
-// field_mlp.cu; mode 3 the given z-features.  Zero past d_in and on rows
-// past n_rows.
+// x <- h's rows for the thread's tile, by the thread's kV-wide column
+// groups (the reverse of the h store); zeros on rows past n_rows, which
+// read the last row so that no branch holds back the loads
+template <int kH>
+__device__ __forceinline__ void load_x(Tile<kH>& x, const Params& p,
+                                       int row0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane % kRowLanes, cg = lane / kRowLanes;
+#pragma unroll
+  for (int m = 0; m < kTM; ++m) {
+    const int row = min(row0 + kRowLanes * m + rg, p.n_rows - 1);
+    load_cols<kH>(p.h + (size_t)row * kH, warp, cg, x[m]);
+  }
+#pragma unroll
+  for (int m = 0; m < kTM; ++m)
+#pragma unroll
+    for (int i = 0; i < Cols<kH>::kTN; ++i)
+      if (row0 + kRowLanes * m + rg >= p.n_rows) x[m][i] = 0.f;
+}
+
+// A[col][pos(r)] for the CTA's rows, col < dz = round_up(d_in, kBK): modes
+// 0 and 1 the positional encoding [x, sin(f_0 x), cos(f_0 x), ..., vd]
+// with cos(t) = sin(t + pi/2), products and sums rounded separately (the
+// reference's f32 value of t); mode 3 the given z-features.  Zero past
+// d_in and on rows past n_rows.
 __device__ __forceinline__ void front_end(const Params& p, int row0, int dz,
                                           float* abuf) {
   const int n_band = 6 * p.num_freqs;
@@ -609,19 +826,18 @@ __device__ __forceinline__ void front_end(const Params& p, int row0, int dz,
   }
 }
 
-template <int kH>
+template <int kH, int kGroup>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     field_mlp_f32(const __grid_constant__ CUtensorMap lat_map,
                   const __grid_constant__ Params p) {
   using L = Layout<kH>;
-  using C = Cols<kH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + ((128 - (raw & 127)) & 127);
   float* abuf = reinterpret_cast<float*>(sm + L::kA);
 
   const int row0 = blockIdx.x * kRows;
-  Walk walk(p, kH, sm);
+  Walk<kH, kGroup> walk(p, sm);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       const Stage<kH> st(walk.base, s);
@@ -637,46 +853,75 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   // issues the rest
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int s = warp; s < min(kLookahead, walk.total); s += kWarps)
-    if (lane == 0) walk.issue_stage<kH>(&lat_map, &p, s);
-  front_end(p, row0, round_up(p.d_in, kBK), abuf);
-  __syncthreads();
+    if (lane == 0) walk.issue_stage(&lat_map, &p, s);
   Tile<kH> x, acc;
-  product<kH, false>(x, abuf, p.d_in, p.b_in, walk, &lat_map, &p);
-  for (int blk = 0; blk < p.n_pre; ++blk) {
-    product<kH, true>(acc, nullptr, p.d_latent, p.bz + blk * kH, walk,
-                      &lat_map, &p);
-    to_x<kH, kAdd>(x, acc);
-    // A <- relu(x), once every warp has read A's last contents
+  if constexpr (kGroup == kPost) {
+    load_x<kH>(x, p, row0);
+  } else {
+    front_end(p, row0, round_up(p.d_in, kBK), abuf);
+    __syncthreads();
+    product<kH, false>(x, abuf, p.d_in, p.b_in, walk, &lat_map, &p);
+    for (int blk = 0; blk < p.n_pre; ++blk) {
+      product<kH, true>(acc, nullptr, p.d_latent, p.bz + blk * kH, walk,
+                        &lat_map, &p);
+      to_x<kH, kAdd>(x, acc);
+      // A <- relu(x), once every warp has read A's last contents
+      __syncthreads();
+      store_relu<kH>(abuf, x);
+      __syncthreads();
+      product<kH, false>(acc, abuf, kH, p.b0 + blk * kH, walk, &lat_map,
+                         &p);
+      // A <- relu(fc_0(relu(x)))
+      __syncthreads();
+      store_relu<kH>(abuf, acc);
+      __syncthreads();
+      product<kH, false>(acc, abuf, kH, p.b1 + blk * kH, walk, &lat_map,
+                         &p);
+      to_x<kH, kAdd>(x, acc);
+    }
+  }
+  if constexpr (kGroup == kPre) {
+    // h: the thread's kV-wide column groups of its valid rows
+    using C = Cols<kH>;
+    const int rg = lane % kRowLanes, cg = lane / kRowLanes;
+#pragma unroll
+    for (int m = 0; m < kTM; ++m) {
+      const int row = row0 + kRowLanes * m + rg;
+      if (row >= p.n_rows) continue;
+      float* h = p.out + (size_t)row * kH;
+#pragma unroll
+      for (int g = 0; g < C::kG; ++g) {
+        float* d = h + C::at(warp, cg, g * C::kV);
+        const float* v = &x[m][g * C::kV];
+        if constexpr (C::kV == 4) {
+          *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+        } else if constexpr (C::kV == 2) {
+          *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+        } else {
+          *d = v[0];
+        }
+      }
+    }
+  } else {
+    // the post blocks, then lin_out
+    for (int blk = 0; blk < p.n_post; ++blk) {
+      __syncthreads();
+      store_relu<kH>(abuf, x);
+      __syncthreads();
+      product<kH, false>(acc, abuf, kH, p.b0p + blk * kH, walk, &lat_map,
+                         &p);
+      __syncthreads();
+      store_relu<kH>(abuf, acc);
+      __syncthreads();
+      product<kH, false>(acc, abuf, kH, p.b1p + blk * kH, walk, &lat_map,
+                         &p);
+      to_x<kH, kAdd>(x, acc);
+    }
+    // A <- relu(x) for lin_out
     __syncthreads();
     store_relu<kH>(abuf, x);
     __syncthreads();
-    product<kH, false>(acc, abuf, kH, p.b0 + blk * kH, walk, &lat_map, &p);
-    // A <- relu(fc_0(relu(x)))
-    __syncthreads();
-    store_relu<kH>(abuf, acc);
-    __syncthreads();
-    product<kH, false>(acc, abuf, kH, p.b1 + blk * kH, walk, &lat_map, &p);
-    to_x<kH, kAdd>(x, acc);
-  }
-  // h: the thread's kV-wide column groups of its valid rows
-  const int rg = lane % kRowLanes, cg = lane / kRowLanes;
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int row = row0 + kRowLanes * m + rg;
-    if (row >= p.n_rows) continue;
-    float* h = p.out + (size_t)row * kH;
-#pragma unroll
-    for (int g = 0; g < C::kG; ++g) {
-      float* d = h + C::at(warp, cg, g * C::kV);
-      const float* v = &x[m][g * C::kV];
-      if constexpr (C::kV == 4) {
-        *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
-      } else if constexpr (C::kV == 2) {
-        *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
-      } else {
-        *d = v[0];
-      }
-    }
+    lin_out<kH>(abuf, walk, &lat_map, &p, row0);
   }
   // no CTA leaves while a peer may still copy into it or arrive on it
   cluster_sync();
@@ -727,19 +972,32 @@ int encode_latent(CUtensorMap* map, const void* ptr, uint64_t cols,
              : (int)cudaErrorInvalidValue;
 }
 
-template <int kH>
+template <int kH, int kGroup>
 int launch(const Params& p, const void* latent, cudaStream_t stream) {
-  CUtensorMap lat_map;
-  int err = encode_latent(&lat_map, latent, p.d_latent, p.n_rows);
-  if (err != 0) return err;
+  CUtensorMap lat_map{};  // group 2 reads no latent
+  int err = 0;
+  if constexpr (kGroup != kPost) {
+    err = encode_latent(&lat_map, latent, p.d_latent, p.n_rows);
+    if (err != 0) return err;
+  }
   constexpr int smem = smem_bytes<kH>();
-  err = (int)cudaFuncSetAttribute(
-      field_mlp_f32<kH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = (int)cudaFuncSetAttribute(field_mlp_f32<kH, kGroup>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
   if (err != 0) return err;
   const int tiles = (p.n_rows + kRows - 1) / kRows;
   const int grid = round_up(tiles, kCluster);  // whole clusters
-  field_mlp_f32<kH><<<grid, kThreads, smem, stream>>>(lat_map, p);
+  field_mlp_f32<kH, kGroup><<<grid, kThreads, smem, stream>>>(lat_map, p);
   return (int)cudaGetLastError();
+}
+
+template <int kH>
+int launch_mode(const Params& p, const void* latent, cudaStream_t stream) {
+  switch (p.mode) {
+    case 0: return launch<kH, kWhole>(p, latent, stream);
+    case 2: return launch<kH, kPost>(p, latent, stream);
+    default: return launch<kH, kPre>(p, latent, stream);  // modes 1, 3
+  }
 }
 
 bool aligned16(const void* p) {
@@ -756,6 +1014,8 @@ int field_mlp_f32_rows_per_cta() { return kRows; }
 int field_mlp_f32_k_step() { return kBK; }
 int field_mlp_f32_stages() { return kStages; }
 int field_mlp_f32_cluster() { return kCluster; }
+// the widest lin_out (modes 0, 2; also no wider than hidden)
+int field_mlp_f32_max_out() { return kMaxOut; }
 // dynamic shared memory of the kernel at `hidden` (0: no instantiation)
 int field_mlp_f32_smem_bytes(int hidden) {
   switch (hidden) {
@@ -770,32 +1030,51 @@ int field_mlp_f32_smem_bytes(int hidden) {
     default: return 0;
   }
 }
-// ring stages a launch walks
-int field_mlp_f32_walk_stages(int d_in, int d_latent, int hidden, int n_pre) {
-  return walk_stages(d_in, d_latent, hidden, n_pre);
+// ring stages a launch walks (mode 2: d_in = d_latent = n_pre = 0; modes
+// 1 and 3: n_post = d_out = 0)
+int field_mlp_f32_walk_stages(int d_in, int d_latent, int hidden, int n_pre,
+                              int n_post, int d_out) {
+  return walk_stages(d_in, d_latent, hidden, n_pre, n_post, d_out);
+}
+// w_out rows a lin_out stage carries (the last stage: what is left)
+int field_mlp_f32_out_rows(int hidden, int d_out) {
+  return out_rows(hidden, d_out);
 }
 
 const char* field_mlp_f32_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches mode 1 (pre_combine_pe) or 3 (pre_combine) in f32 on `stream`;
-// returns the CUDA error code (0 = ok).  The latent, the weights and
-// biases and out must start on 16-byte boundaries (TMA, bulk copies and
-// 128-bit accesses); base (mode 1) or zfeat (mode 3) may be null in the
-// other mode.
+// Launches mode 0 (full_pe), 1 (pre_combine_pe), 2 (post_combine) or 3
+// (pre_combine) in f32 on `stream`; returns the CUDA error code (0 = ok).
+// The tensors a mode reads with bulk, TMA or 128-bit accesses must start
+// on 16-byte boundaries: before the combine (modes 0, 1, 3) the latent,
+// w_in, wz, w0, w1 and their biases; after it (modes 0, 2) w0p, w1p,
+// w_out and the biases of w0p and w1p; h (mode 2); out (modes 1, 3).  A
+// pointer a mode does not read may be null.
 int field_mlp_f32_launch(int mode, const void* base, const void* zfeat,
-                         const void* latent, const void* w_in,
+                         const void* h, const void* latent, const void* w_in,
                          const void* b_in, const void* wz, const void* bz,
                          const void* w0, const void* b0, const void* w1,
-                         const void* b1, void* out, int n_rows, int d_in,
-                         int d_latent, int hidden, int n_pre, int num_freqs,
-                         float freq_factor, void* stream) {
-  if ((mode != 1 && mode != 3) || d_in < 0 || d_latent <= 0 ||
-      d_latent % kBK != 0 || round_up(d_in, kBK) > hidden || n_pre < 0 ||
-      !aligned16(latent) || !aligned16(w_in) || !aligned16(wz) ||
-      !aligned16(w0) || !aligned16(w1) || !aligned16(b_in) ||
-      !aligned16(bz) || !aligned16(b0) || !aligned16(b1) || !aligned16(out))
+                         const void* b1, const void* w0p, const void* b0p,
+                         const void* w1p, const void* b1p, const void* w_out,
+                         const void* b_out, void* out, int n_rows, int d_in,
+                         int d_latent, int hidden, int n_pre, int n_post,
+                         int d_out, int num_freqs, float freq_factor,
+                         void* stream) {
+  const bool pre = mode != 2, post = mode == 0 || mode == 2;
+  if (mode < 0 || mode > 3 || n_pre < 0 || n_post < 0 ||
+      (mode == 2 && !aligned16(h)) || (!post && !aligned16(out)))
+    return (int)cudaErrorInvalidValue;
+  if (pre && (d_in < 0 || d_latent <= 0 || d_latent % kBK != 0 ||
+              round_up(d_in, kBK) > hidden || !aligned16(latent) ||
+              !aligned16(w_in) || !aligned16(wz) || !aligned16(w0) ||
+              !aligned16(w1) || !aligned16(b_in) || !aligned16(bz) ||
+              !aligned16(b0) || !aligned16(b1)))
+    return (int)cudaErrorInvalidValue;
+  if (post && (d_out <= 0 || d_out > kMaxOut || d_out > hidden ||
+               !aligned16(w0p) || !aligned16(w1p) || !aligned16(w_out) ||
+               !aligned16(b0p) || !aligned16(b1p)))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   Params p;
@@ -811,22 +1090,31 @@ int field_mlp_f32_launch(int mode, const void* base, const void* zfeat,
   p.b1 = static_cast<const float*>(b1);
   p.out = static_cast<float*>(out);
   p.n_rows = n_rows;
-  p.d_in = d_in;
-  p.d_latent = d_latent;
-  p.n_pre = n_pre;
+  p.d_in = pre ? d_in : 0;
+  p.d_latent = pre ? d_latent : 0;
+  p.n_pre = pre ? n_pre : 0;
   p.num_freqs = num_freqs;
   p.mode = mode;
   p.freq_factor = freq_factor;
+  p.h = static_cast<const float*>(h);
+  p.w0p = static_cast<const float*>(w0p);
+  p.b0p = static_cast<const float*>(b0p);
+  p.w1p = static_cast<const float*>(w1p);
+  p.b1p = static_cast<const float*>(b1p);
+  p.w_out = static_cast<const float*>(w_out);
+  p.b_out = static_cast<const float*>(b_out);
+  p.n_post = post ? n_post : 0;
+  p.d_out = post ? d_out : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hidden) {
-    case 64: return launch<64>(p, latent, s);
-    case 128: return launch<128>(p, latent, s);
-    case 192: return launch<192>(p, latent, s);
-    case 256: return launch<256>(p, latent, s);
-    case 320: return launch<320>(p, latent, s);
-    case 384: return launch<384>(p, latent, s);
-    case 448: return launch<448>(p, latent, s);
-    case 512: return launch<512>(p, latent, s);
+    case 64: return launch_mode<64>(p, latent, s);
+    case 128: return launch_mode<128>(p, latent, s);
+    case 192: return launch_mode<192>(p, latent, s);
+    case 256: return launch_mode<256>(p, latent, s);
+    case 320: return launch_mode<320>(p, latent, s);
+    case 384: return launch_mode<384>(p, latent, s);
+    case 448: return launch_mode<448>(p, latent, s);
+    case 512: return launch_mode<512>(p, latent, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,7 @@
 //   mode 1  pre_combine_pe  <- fused_pre_combine_pe (_pre_combine_pe_kernel)
 //   mode 2  post_combine    <- fused_post_combine   (_post_combine_kernel)
 //   mode 3  pre_combine     <- fused_pre_combine    (_pre_combine_kernel)
-// (their f32 variants stay on the CUDA cores in field_mlp.cu).  Modes 0, 1
+// (their f32 variants run on the CUDA cores in field_mlp_f32.cu).  Modes 0, 1
 // and 3 run lin_in, then n_pre x (lin_z, fc_0, fc_1); modes 0 and 1 compute
 // the positional encoding of [xyz, viewdirs] in the kernel, mode 3 loads
 // given z-features.  Modes 0 and 2 run n_post x (fc_0, fc_1), then lin_out
@@ -599,7 +599,7 @@ __device__ __forceinline__ void lin_out_any(const bf16* X, const Params& p,
 
 // Z[r, col] (row stride ld) for the CTA's rows: mode 1 the positional
 // encoding [x, sin(f_0 x), cos(f_0 x), ..., vd] with cos(t) = sin(t +
-// pi/2), products and sums rounded separately as in field_mlp.cu; mode 3
+// pi/2), products and sums rounded separately as in field_mlp_f32.cu; mode 3
 // the given z-features.  Zero past d_in (up to dz) and on rows past n_rows.
 __device__ __forceinline__ void front_end(const Params& p, int row0, int dz,
                                           int ld, bf16* Z) {

@@ -13,14 +13,12 @@ The first three carry models whose positional encoding fits in the kernel
 (``fused_pe_forward``); the last carries the others (``fused_forward``,
 e.g. ``use_code_viewdirs = True``), followed by ``post_combine``.
 
-Three variants (``variant``), each CUDA C++ for sm_90a: every bf16 mode
+Two variants (``variant``), each CUDA C++ for sm_90a: every bf16 mode
 runs on the tensor cores (csrc/field_mlp_tc.cu: wgmma, weights streamed
-through a ring of TMA copies, packed once by ``pack_tc``); f32
-``pre_combine_pe`` and ``pre_combine`` on the CUDA cores with the weight
-slices and the latent streamed through a ring of bulk and TMA copies
-(csrc/field_mlp_f32.cu, no packing: ``f32_schedule`` mirrors its walk);
-f32 ``full_pe`` and ``post_combine`` on the CUDA cores with synchronous
-weight tiles (csrc/field_mlp.cu).
+through a ring of TMA copies, packed once by ``pack_tc``); every f32 mode
+on the CUDA cores with the weight slices and the latent streamed through
+a ring of bulk and TMA copies (csrc/field_mlp_f32.cu, no packing:
+``f32_schedule`` mirrors its walk).
 
 Each wrapper runs its plain twin (``*_plain``: the same function with the
 same rounding points, in plain torch) when its tensors lie on the CPU,
@@ -53,18 +51,17 @@ import torch
 from ..nn.code import PositionalEncoding
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = {"field_mlp": PACKAGE_DIR / "csrc" / "field_mlp.cu",
-           "field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu",
+SOURCES = {"field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu",
            "field_mlp_f32": PACKAGE_DIR / "csrc" / "field_mlp_f32.cu"}
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Mirrors of the kernel's tiling constants (checked against the library
-# when it loads) and the per-block shared-memory limit of sm_90.
-ROWS_PER_BLOCK = 32
-WEIGHT_TILE_ROWS = 16
-COLUMN_LANES = 64
+# Mirrors of the kernels' tiling constants (checked against the libraries
+# when they load) and the per-block shared-memory limit of sm_90.  Both
+# kernels take hidden widths that are multiples of HIDDEN_STEP (the f32
+# kernel's 8 warps x 8 column lanes) up to MAX_HIDDEN.
+HIDDEN_STEP = 64
 MAX_HIDDEN = 512
 SMEM_LIMIT = 232448
 # the tensor-core variant (field_mlp_tc.cu): rows per CTA, wgmma K step
@@ -76,14 +73,14 @@ TC_STAGES = 5
 TC_CLUSTER = 2
 TC_ROW_PAD = 8
 # the f32 ring variant (field_mlp_f32.cu): rows per CTA, depth of a ring
-# stage, ring stages, CTAs per cluster
+# stage, ring stages, CTAs per cluster, the widest lin_out
 F32_ROWS = 32
 F32_K_STEP = 16
 F32_STAGES = 4
 F32_CLUSTER = 2
+F32_MAX_OUT = 256
 # which library runs each variant
-LIBRARY = {"cuda_core": "field_mlp", "tensor_core": "field_mlp_tc",
-           "cuda_core_ring": "field_mlp_f32"}
+LIBRARY = {"tensor_core": "field_mlp_tc", "cuda_core_ring": "field_mlp_f32"}
 MODES = {"full_pe": 0, "pre_combine_pe": 1, "post_combine": 2,
          "pre_combine": 3}
 # lin_out widths of the tensor-core kernel (one instantiation each)
@@ -320,13 +317,10 @@ def post_combine_plain(h, w: StackedWeights) -> torch.Tensor:
 
 def variant(mode: str, compute_dtype) -> str:
     """Which kernel a launch of ``mode`` takes: "tensor_core"
-    (field_mlp_tc.cu) in bf16; in f32 "cuda_core_ring" (field_mlp_f32.cu)
-    for the pre-combine modes, "cuda_core" (field_mlp.cu) for the others."""
-    if compute_dtype == torch.bfloat16:
-        return "tensor_core"
-    if mode in ("pre_combine_pe", "pre_combine"):
-        return "cuda_core_ring"
-    return "cuda_core"
+    (field_mlp_tc.cu) in bf16, "cuda_core_ring" (field_mlp_f32.cu) in
+    f32."""
+    return "tensor_core" if compute_dtype == torch.bfloat16 \
+        else "cuda_core_ring"
 
 
 def smem_bytes_f32(hidden: int, k_step: int = F32_K_STEP,
@@ -339,15 +333,31 @@ def smem_bytes_f32(hidden: int, k_step: int = F32_K_STEP,
     return 128 + stages * stage + hidden * F32_ROWS * 4 + 16 * stages
 
 
+def f32_out_rows(hidden: int, d_out: int, k_step: int = F32_K_STEP) -> int:
+    """Rows of w_out (hidden, d_out) that a lin_out stage of the f32 ring
+    kernel carries: the fewest stages of at most a slot's k_step x hidden
+    floats and a multiple of 8 rows (16-byte pieces for each CTA of a
+    cluster), balanced; the last stage takes what is left.  512 rows (one
+    stage) at NeRF's d_out 4, 256 (two) at YOLO's 21."""
+    fit = k_step * hidden // d_out // 8 * 8  # the most rows a slot holds
+    stages = -(-hidden // fit)
+    return (-(-hidden // stages) + 7) // 8 * 8
+
+
 def f32_schedule(d_in: int, d_latent: int, hidden: int, n_pre: int,
+                 n_post: int = 0, d_out: int = 0,
                  k_step: int = F32_K_STEP):
     """The ring stages the f32 ring kernel walks, in order, as (weight,
     block, first row, rows, latent column): lin_in's slices of w_in (the
     last one short when d_in is not a multiple of k_step), then per pre
     block lin_z's slices of wz[block] (each with the latent's k_step
     columns from the given one), fc_0's of w0[block] and fc_1's of
-    w1[block].  Each slice is rows [first, first + rows) of its (K, H)
-    matrix; latent column None: no latent."""
+    w1[block]; per post block fc_0's of w0p[block] and fc_1's of
+    w1p[block]; with d_out > 0 lin_out's slices of w_out
+    (``f32_out_rows``).  Each slice is rows [first, first + rows) of its
+    (K, N) matrix; latent column None: no latent.  full_pe walks it all,
+    pre_combine_pe and pre_combine with n_post = d_out = 0, post_combine
+    with d_in = d_latent = n_pre = 0."""
     k = k_step
     out = [("w_in", None, r, min(k, d_in - r), None)
            for r in range(0, d_in, k)]
@@ -355,6 +365,13 @@ def f32_schedule(d_in: int, d_latent: int, hidden: int, n_pre: int,
         out += [("wz", b, r, k, r) for r in range(0, d_latent, k)]
         out += [(name, b, r, k, None) for name in ("w0", "w1")
                 for r in range(0, hidden, k)]
+    for b in range(n_post):
+        out += [(name, b, r, k, None) for name in ("w0p", "w1p")
+                for r in range(0, hidden, k)]
+    if d_out:
+        step = f32_out_rows(hidden, d_out, k)
+        out += [("w_out", None, r, min(step, hidden - r), None)
+                for r in range(0, hidden, step)]
     return out
 
 
@@ -368,43 +385,30 @@ def smem_bytes_tc(hidden: int) -> int:
             + 16 * TC_STAGES)
 
 
-def smem_bytes(mode: str, elt_bytes: int, hidden: int, d_latent: int) -> int:
-    """Shared memory of the CUDA-core kernel of ``mode``."""
-    lat = 0 if mode == "post_combine" else ROWS_PER_BLOCK * d_latent
-    return elt_bytes * (2 * ROWS_PER_BLOCK * hidden + lat
-                        + WEIGHT_TILE_ROWS * hidden)
-
-
 def fits(d_in: int, d_latent: int, hidden: int, compute_dtype,
          mode: str = "full_pe", d_out: int = 4) -> bool:
     """Whether the kernel of ``mode`` takes these widths: hidden a multiple
-    of 64 up to 512 and the block's tiles within the shared-memory limit;
-    before the combine (every mode but post_combine) also the z-features,
-    rounded up to the variant's weight tile or K step (16 in each), no
-    wider than hidden and d_latent a multiple of the same.  Only the
-    shared memory of field_mlp.cu (f32 full_pe and post_combine) depends
-    on d_latent and the mode; the tensor-core variant's lin_out (full_pe,
-    post_combine) needs a width for d_out (``tc_out_width``: d_out <= 256)
-    no wider than hidden."""
+    of 64 up to 512 and the CTA's shared memory (which grows with hidden
+    only) within the limit; before the combine (every mode but
+    post_combine) also the z-features, rounded up to the K step (16 in
+    both variants), no wider than hidden and d_latent a multiple of the
+    same; with lin_out (full_pe, post_combine) a d_out that the variant
+    takes, no wider than hidden: in bf16 one of ``tc_out_width``'s widths
+    (d_out <= 256), in f32 up to F32_MAX_OUT (256)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         return False
-    var = variant(mode, compute_dtype)
-    if var == "tensor_core":
-        smem = smem_bytes_tc(hidden)
-    elif var == "cuda_core_ring":
-        smem = smem_bytes_f32(hidden)
-    else:
-        smem = smem_bytes(mode, 4, hidden, d_latent)
-    ok = hidden % COLUMN_LANES == 0 and 0 < hidden <= MAX_HIDDEN \
+    tc = variant(mode, compute_dtype) == "tensor_core"
+    smem = smem_bytes_tc(hidden) if tc else smem_bytes_f32(hidden)
+    ok = hidden % HIDDEN_STEP == 0 and 0 < hidden <= MAX_HIDDEN \
         and smem <= SMEM_LIMIT
     if mode != "post_combine":
-        k = {"tensor_core": TC_K_STEP, "cuda_core_ring": F32_K_STEP,
-             "cuda_core": WEIGHT_TILE_ROWS}[var]
+        k = TC_K_STEP if tc else F32_K_STEP
         ok = ok and (-(-d_in // k) * k <= hidden
                      and d_latent > 0 and d_latent % k == 0)
-    if var == "tensor_core" and mode in ("full_pe", "post_combine"):
-        nout = tc_out_width(d_out)
-        ok = ok and nout is not None and nout <= hidden
+    if mode in ("full_pe", "post_combine"):
+        width = tc_out_width(d_out) if tc else (
+            d_out if 0 < d_out <= F32_MAX_OUT else None)
+        ok = ok and width is not None and width <= hidden
     return ok
 
 
@@ -468,23 +472,10 @@ def build() -> dict:
 
 
 def load_library() -> dict:
-    """Build and load the three libraries; check that their tiling
-    constants agree with this module's mirrors."""
+    """Build and load the two libraries; check that their tiling constants
+    agree with this module's mirrors."""
     if not _libraries:
         paths = build()
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib = ctypes.CDLL(str(paths["field_mlp"]))
-        lib.field_mlp_launch.argtypes = (
-            [ci, ci] + [vp] * 19 + [ci] * 8 + [ctypes.c_float, vp]
-        )
-        lib.field_mlp_launch.restype = ci
-        lib.field_mlp_error_string.argtypes = [ci]
-        lib.field_mlp_error_string.restype = ctypes.c_char_p
-        lib.field_mlp_rows_per_block.restype = ci
-        lib.field_mlp_weight_tile_rows.restype = ci
-        if (lib.field_mlp_rows_per_block(), lib.field_mlp_weight_tile_rows()) \
-                != (ROWS_PER_BLOCK, WEIGHT_TILE_ROWS):
-            raise KernelBuildError("kernel tiling constants disagree")
         tc = bind_tc(paths["field_mlp_tc"])
         consts = ("rows_per_cta", "k_step", "stages", "cluster", "row_pad")
         got = tuple(getattr(tc, f"field_mlp_tc_{c}")() for c in consts)
@@ -496,7 +487,7 @@ def load_library() -> dict:
             raise KernelBuildError("tensor-core lin_out widths disagree")
         f32 = bind_f32(paths["field_mlp_f32"])
         check_f32(f32)
-        _libraries.update(field_mlp=lib, field_mlp_tc=tc, field_mlp_f32=f32)
+        _libraries.update(field_mlp_tc=tc, field_mlp_f32=f32)
     return _libraries
 
 
@@ -505,39 +496,57 @@ def bind_f32(path) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     f32 = ctypes.CDLL(str(path))
     f32.field_mlp_f32_launch.argtypes = (
-        [ci] + [vp] * 12 + [ci] * 6 + [ctypes.c_float, vp]
+        [ci] + [vp] * 19 + [ci] * 8 + [ctypes.c_float, vp]
     )
     f32.field_mlp_f32_launch.restype = ci
     f32.field_mlp_f32_error_string.argtypes = [ci]
     f32.field_mlp_f32_error_string.restype = ctypes.c_char_p
-    for c in ("rows_per_cta", "k_step", "stages", "cluster"):
+    for c in ("rows_per_cta", "k_step", "stages", "cluster", "max_out"):
         getattr(f32, f"field_mlp_f32_{c}").restype = ci
     f32.field_mlp_f32_smem_bytes.argtypes = [ci]
     f32.field_mlp_f32_smem_bytes.restype = ci
-    f32.field_mlp_f32_walk_stages.argtypes = [ci] * 4
+    f32.field_mlp_f32_walk_stages.argtypes = [ci] * 6
     f32.field_mlp_f32_walk_stages.restype = ci
+    f32.field_mlp_f32_out_rows.argtypes = [ci] * 2
+    f32.field_mlp_f32_out_rows.restype = ci
     return f32
+
+
+# (d_in, d_latent, hidden, n_pre, n_post, d_out) at which ``check_f32``
+# holds the f32 kernel's walk to ``f32_schedule``: full_pe at the NeRF and
+# YOLO widths and narrow ones, pre_combine_pe, pre_combine (no post
+# stage), post_combine (no pre stage) with NeRF's, YOLO's and other heads
+F32_WALK_CHECKS = ((42, 512, 512, 3, 2, 4), (42, 1792, 512, 3, 2, 21),
+                   (42, 512, 512, 3, 0, 0), (78, 1792, 512, 3, 0, 0),
+                   (6, 48, 128, 1, 1, 1), (42, 64, 64, 0, 2, 64),
+                   (0, 0, 512, 0, 2, 4), (0, 0, 512, 0, 2, 21),
+                   (0, 0, 192, 0, 1, 100), (0, 0, 512, 0, 0, 256))
 
 
 def check_f32(f32, consts=(F32_ROWS, F32_K_STEP, F32_STAGES, F32_CLUSTER)):
     """Raise unless a build of field_mlp_f32.cu has the tiling constants
-    ``consts`` (rows, stage depth, stages, cluster) and agrees with this
-    module's mirrors of its shared memory (every hidden width) and of its
-    walk (the flagship widths and narrow ones)."""
+    ``consts`` (rows, stage depth, stages, cluster) and the lin_out limit
+    F32_MAX_OUT, and agrees with this module's mirrors of its shared
+    memory (every hidden width) and of its walk (F32_WALK_CHECKS: stage
+    counts and lin_out's rows a stage)."""
     got = tuple(getattr(f32, f"field_mlp_f32_{c}")()
                 for c in ("rows_per_cta", "k_step", "stages", "cluster"))
     if got != tuple(consts):
         raise KernelBuildError(f"f32 kernel tiling constants disagree: {got}")
+    if f32.field_mlp_f32_max_out() != F32_MAX_OUT:
+        raise KernelBuildError("f32 kernel lin_out limit disagrees")
     k, stages = consts[1], consts[2]
     if any(f32.field_mlp_f32_smem_bytes(h) != smem_bytes_f32(h, k, stages)
-           for h in range(64, MAX_HIDDEN + 1, 64)):
+           for h in range(HIDDEN_STEP, MAX_HIDDEN + 1, HIDDEN_STEP)):
         raise KernelBuildError("f32 kernel shared memory disagrees")
-    for shape in ((42, 512, 512, 3), (78, 1792, 512, 3), (6, 48, 128, 1),
-                  (42, 64, 64, 0)):
+    for shape in F32_WALK_CHECKS:
         if shape[1] % k or shape[2] % k:  # widths this build does not take
             continue
+        d_out = shape[5]
         if f32.field_mlp_f32_walk_stages(*shape) != len(
-                f32_schedule(*shape, k_step=k)):
+                f32_schedule(*shape, k_step=k)) or (d_out and (
+                    f32.field_mlp_f32_out_rows(shape[2], d_out)
+                    != f32_out_rows(shape[2], d_out, k))):
             raise KernelBuildError(f"f32 kernel walk disagrees at {shape}")
 
 
@@ -610,8 +619,9 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    post = mode in ("full_pe", "post_combine")
     n_pre = w.wz.shape[0] if mode != "post_combine" else 0
-    n_post = w.w0p.shape[0] if mode in ("full_pe", "post_combine") else 0
+    n_post = w.w0p.shape[0] if post else 0
     stream = torch.cuda.current_stream(device).cuda_stream
     var = variant(mode, cdt)
     name = LIBRARY[var]
@@ -635,30 +645,27 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
                 float(freq_factor), stream,
             )
         error_string = lib.field_mlp_tc_error_string
-    elif var == "cuda_core_ring":
-        pre_args = [latent] + [getattr(w, f) for f in WEIGHT_NAMES[:8]]
-        for label, t in zip(("latent",) + WEIGHT_NAMES[:8], pre_args):
+    else:
+        # what the ring kernel reads with bulk, TMA or 128-bit accesses:
+        # before the combine the latent and the pre stacks, after it h
+        # (post_combine) and the post stacks and w_out
+        aligned = ([("h", h)] if mode == "post_combine" else
+                   [("latent", latent)] + [(f, getattr(w, f))
+                                           for f in WEIGHT_NAMES[:8]])
+        if post:
+            aligned += [(f, getattr(w, f)) for f in WEIGHT_NAMES[8:13]]
+        for label, t in aligned:
             if t.data_ptr() % 16:
                 raise ValueError(f"{label} must start on a 16-byte boundary "
-                                 "(TMA and bulk copies)")
+                                 "(TMA, bulk copies and 16-byte loads)")
         with torch.cuda.device(device):
             err = lib.field_mlp_f32_launch(
-                MODES[mode], ptr(base), ptr(zfeat),
-                *(ptr(t) for t in pre_args), ptr(out), n_rows, d_in,
-                d_latent, w.hidden, n_pre, num_freqs, float(freq_factor),
-                stream,
+                MODES[mode], ptr(base), ptr(zfeat), ptr(h), ptr(latent),
+                *(ptr(getattr(w, f)) for f in WEIGHT_NAMES), ptr(out),
+                n_rows, d_in, d_latent, w.hidden, n_pre, n_post,
+                d_out if post else 0, num_freqs, float(freq_factor), stream,
             )
         error_string = lib.field_mlp_f32_error_string
-    else:
-        with torch.cuda.device(device):
-            err = lib.field_mlp_launch(
-                MODES[mode], int(cdt == torch.bfloat16), ptr(base),
-                ptr(zfeat), ptr(latent), ptr(h),
-                *(ptr(getattr(w, f)) for f in WEIGHT_NAMES), ptr(out),
-                n_rows, d_in, d_latent, w.hidden, n_pre, n_post, d_out,
-                num_freqs, float(freq_factor), stream,
-            )
-        error_string = lib.field_mlp_error_string
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"{name} {mode} launch failed: {msg} ({err})")

@@ -2,7 +2,7 @@
 """Time the port's field-MLP kernels (and a render) of checkouts in turns.
 
     python3 scripts/bench_ab.py ROOT [ROOT ...] [--kinds K1,K2] [--reps N]
-        [--dtype bfloat16|float32] [--fine] [--render NS]
+        [--dtype bfloat16|float32] [--fine] [--render NS[,NS]] [--yolo]
 
 (on a machine with an NVIDIA GPU).  Each ROOT is a checkout of this
 repository (e.g. the parent commit unpacked with ``git archive``, then
@@ -12,12 +12,12 @@ in the order given, a fresh process imports that checkout's
 its own ``_build/``, checks each kernel of ``--kinds`` against its plain
 twin and times it at the rows of ``chip_smoke.py``'s phase 7 (the mean
 of ``--reps`` launches after a warm-up) in ``--dtype``: NeRF widths, the
-YOLO widths for ``pre_combine_pe`` and ``post_combine`` where that
-checkout's ``fits`` takes them (bf16 always; f32 ``post_combine``, and
-f32 ``pre_combine_pe`` once its kernel streams the latent), and with
-``--fine`` also the fine pass's NeRF rows (1.5x).  ``--render NS`` then times ``chip_smoke.py``'s NeRF flagship
-render at NS views through the kernels, twice (the first call in the
-process, then a second).  The last lines are the card's name and power
+YOLO widths for ``pre_combine_pe`` and ``post_combine`` (NS=3 rows) and
+``full_pe`` (NS=1 rows) where that checkout's ``fits`` takes them, and
+with ``--fine`` also the fine pass's NeRF rows (1.5x).  ``--render NS`` then
+times ``chip_smoke.py``'s NeRF flagship render at each NS given through
+the kernels, and ``--yolo`` its YOLO render (NS=3, 16,384 rays), each
+twice (the first call in the process, then a second).  The last lines are the card's name and power
 limit and one JSON object with every time.
 """
 
@@ -34,11 +34,12 @@ CASES = [("full_pe", "NERF", 1_048_576), ("pre_combine_pe", "NERF", 1_048_576),
          ("post_combine", "NERF", 524_288), ("pre_combine", "VIEWDIRS",
                                              1_048_576),
          ("pre_combine_pe", "YOLO", 572_160), ("post_combine", "YOLO",
-                                                190_720)]
+                                                190_720),
+         ("full_pe", "YOLO", 524_288)]
 
 
 def child(root: str, kinds: list[str], reps: int, dtype: str, fine: bool,
-          render_ns: int) -> dict:
+          render_ns: list[int], yolo: bool) -> dict:
     """Time the kernels of one checkout; runs in its own process."""
     import torch
 
@@ -87,12 +88,23 @@ def child(root: str, kinds: list[str], reps: int, dtype: str, fine: bool,
         torch.cuda.empty_cache()
     if render_ns:
         models = cs.build_models(dev)
-        rays = 65536 if render_ns == 1 else 16384
+        for ns in render_ns:
+            rays = 65536 if ns == 1 else 16384
+            for i in range(2):
+                _, sec = cs.render(models, ns, dtype, rays, dev, "auto")
+                out[f"render_ns{ns}_{i}"] = sec
+                print(f"{root} render NeRF NS={ns} {dtype} rays={rays} "
+                      f"call {i}: {sec:.3f} s", flush=True)
+        del models
+    if yolo:
+        model, renderer = cs.build_models(dev, out_scale=1.0, yolo=True,
+                                          backbone="custom")[dtype]
+        rays = cs.YOLO_SIZE * cs.YOLO_SIZE
         for i in range(2):
-            _, sec = cs.render(models, render_ns, dtype, rays, dev, "auto")
-            out[f"render_ns{render_ns}_{i}"] = sec
-            print(f"{root} render NeRF NS={render_ns} {dtype} rays={rays} "
-                  f"call {i}: {sec:.3f} s", flush=True)
+            sec = cs.yolo_render(model, renderer, rays, dev, "auto")[1]
+            out[f"render_yolo_{i}"] = sec
+            print(f"{root} render YOLO NS=3 {dtype} rays={rays} call {i}: "
+                  f"{sec:.3f} s", flush=True)
     return out
 
 
@@ -105,13 +117,16 @@ def main() -> int:
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--fine", action="store_true")
-    ap.add_argument("--render", type=int, default=0, metavar="NS")
+    ap.add_argument("--render", default="", metavar="NS[,NS]")
+    ap.add_argument("--yolo", action="store_true")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     kinds = a.kinds.split(",")
     if a.child:
+        render_ns = [int(n) for n in a.render.split(",") if n]
         print("RESULT " + json.dumps(child(a.roots[0], kinds, a.reps,
-                                           a.dtype, a.fine, a.render)))
+                                           a.dtype, a.fine, render_ns,
+                                           a.yolo)))
         return 0
     import torch
 
@@ -123,7 +138,8 @@ def main() -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), root, "--child",
              "--kinds", a.kinds, "--reps", str(a.reps), "--dtype", a.dtype,
-             "--render", str(a.render)] + (["--fine"] if a.fine else []),
+             "--render", a.render] + (["--fine"] if a.fine else [])
+            + (["--yolo"] if a.yolo else []),
             capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         if proc.returncode != 0:

@@ -2,7 +2,8 @@
 """Time builds of the f32 ring kernel (csrc/field_mlp_f32.cu) with other
 tiling constants, in turns.
 
-    python3 scripts/bench_f32_design.py [DESIGN ...] [--reps N] [--rows N]
+    python3 scripts/bench_f32_design.py [DESIGN ...] [--reps N]
+        [--cases CASE,CASE,...]
 
 (on a machine with an NVIDIA GPU).  A DESIGN is a comma-separated list of
 the source's macros without their FIELD_MLP_F32_ prefix, e.g.
@@ -14,11 +15,11 @@ always run).
 Each design is built with one nvcc, all started together, into
 ``pixelnerf_yolo_torch/_build/``; its ptxas report at H = 512 is printed,
 and it is checked against the plain twin (1e-4 x max|twin|) before it is
-timed.  The designs then take turns (in order, then in reverse) timing f32
-``pre_combine_pe`` at the NeRF widths and ``pre_combine`` at the
-use_code_viewdirs widths of ``chip_smoke.py``'s phase 7 (1,048,576 rows),
-then ``pre_combine_pe`` at the YOLO widths (572,160 rows), each the mean
-of ``--reps`` launches after a warm-up.  Meanwhile ``nvidia-smi``
+timed.  The designs then take turns (in order, then in reverse) timing
+each case of ``--cases`` (CASES: an f32 kernel at the widths and rows of
+``chip_smoke.py``'s phase 7; ``lin_out`` and ``lin_out_yolo`` are
+``post_combine`` with no post block, lin_out alone), each the mean of
+``--reps`` launches after a warm-up.  Meanwhile ``nvidia-smi``
 samples the SM clock and the power draw every 200 ms; the samples drawn
 above 200 W (the kernels running) are summarized.  The last lines are the
 card's name and power limit and one JSON object with the times and the
@@ -28,12 +29,25 @@ clock.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# case: (kernel, widths in chip_smoke.py, rows, post blocks kept or None)
+CASES = {
+    "pre_combine_pe": ("pre_combine_pe", "NERF", 1_048_576, None),
+    "pre_combine": ("pre_combine", "VIEWDIRS", 1_048_576, None),
+    "pre_combine_pe_yolo": ("pre_combine_pe", "YOLO", 572_160, None),
+    "full_pe": ("full_pe", "NERF", 1_048_576, None),
+    "full_pe_yolo": ("full_pe", "YOLO", 524_288, None),
+    "post_combine": ("post_combine", "NERF", 524_288, None),
+    "post_combine_yolo": ("post_combine", "YOLO", 190_720, None),
+    "lin_out": ("post_combine", "NERF", 524_288, 0),
+    "lin_out_yolo": ("post_combine", "YOLO", 190_720, 0),
+}
 
 
 def clocks_under_load(proc) -> dict:
@@ -66,8 +80,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("designs", nargs="*")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--rows", type=int, default=1_048_576)
-    ap.add_argument("--yolo-rows", type=int, default=572_160)
+    ap.add_argument("--cases", default="pre_combine_pe,pre_combine,"
+                    "pre_combine_pe_yolo")
     a = ap.parse_args()
     import torch
 
@@ -119,14 +133,23 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", "200"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    for kind, spec, rows in (("pre_combine_pe", cs.NERF, a.rows),
-                             ("pre_combine", cs.VIEWDIRS, a.rows),
-                             ("pre_combine_pe", cs.YOLO, a.yolo_rows)):
+    for case in a.cases.split(","):
+        kind, widths, rows, n_post = CASES[case]
+        spec = getattr(cs, widths)
         w = fm.stack_params(cs.field_mlp_of(spec, cdt, dev), cdt)
+        if n_post is not None:
+            w = dataclasses.replace(w, **{k: getattr(w, k)[:n_post]
+                                          .contiguous() for k in
+                                          ("w0p", "b0p", "w1p", "b1p")})
         base = torch.rand((rows, 6), generator=g, device=dev) * 2 - 1
         lat = torch.randn((rows, spec["dL"]), generator=g, device=dev)
-        args = ((code_vd(base).contiguous(), lat, w) if kind == "pre_combine"
-                else (base, lat, w, code))
+        if kind == "pre_combine":
+            args = (code_vd(base).contiguous(), lat, w)
+        elif kind == "post_combine":
+            args = (fm.pre_combine_pe_plain(base, lat, w, code).contiguous(),
+                    w)
+        else:
+            args = (base, lat, w, code)
         kernel, plain = getattr(fm, kind), getattr(fm, kind + "_plain")
         ref = plain(*args)
         tol = cs.KERNEL_TOL["float32"] * ref.abs().max().item()
@@ -135,8 +158,8 @@ def main() -> int:
             err = (kernel(*args) - ref).abs().max().item()
             ok &= err <= tol
             ms = cs.time_ms(lambda: kernel(*args), a.reps)
-            times.setdefault(f"{kind}|dL{spec['dL']}|{d}", []).append(ms)
-            print(f"{kind} dL={spec['dL']} rows={rows} design {d}: {ms:.3f} ms "
+            times.setdefault(f"{case}|{d}", []).append(ms)
+            print(f"{case} rows={rows} design {d}: {ms:.3f} ms "
                   f"max_abs_err={err:.3e} (tol {tol:.3e})", flush=True)
         del args, ref, base, lat
         torch.cuda.empty_cache()
@@ -144,9 +167,7 @@ def main() -> int:
     fm._libraries["field_mlp_f32"] = libs["default"]
     print(f"SM clock above 200 W: {clock}")
     print(cs.nvidia_smi())
-    print(json.dumps({"ok": bool(ok), "rows": a.rows,
-                      "yolo_rows": a.yolo_rows, "ms": times,
-                      "sm_clock": clock}))
+    print(json.dumps({"ok": bool(ok), "ms": times, "sm_clock": clock}))
     return 0 if ok else 1
 
 

@@ -241,12 +241,14 @@ def test_stacked_params_cached_until_weights_change():
 
 
 def test_fits_and_smem_budget():
-    # the flagship widths fit in both dtypes; f32 at 512/512 is the
-    # largest latent tile the 227 KB budget takes
+    # the flagship widths fit in both dtypes; the f32 ring kernel's shared
+    # memory (every f32 mode) and the tensor-core kernel's do not grow with
+    # d_latent, so the YOLO widths fit too
     for dt in (torch.float32, torch.bfloat16):
         assert field_mlp.fits(42, 512, 512, dt)
-    assert field_mlp.smem_bytes("full_pe", 4, 512, 512) <= field_mlp.SMEM_LIMIT
-    assert not field_mlp.fits(42, 1792, 512, torch.float32)
+        assert field_mlp.fits(42, 1792, 512, dt, "full_pe", 21)
+    assert field_mlp.smem_bytes_f32(512) <= field_mlp.SMEM_LIMIT
+    assert field_mlp.smem_bytes_tc(512) <= field_mlp.SMEM_LIMIT
     assert not field_mlp.fits(42, 512, 96, torch.float32)
     assert not field_mlp.fits(42, 512, 1024, torch.bfloat16)
     assert not field_mlp.fits(42, 512, 512, torch.float16)
@@ -257,11 +259,9 @@ def test_fits_and_smem_budget():
         assert field_mlp.fits(78, 512, 512, dt, mode="pre_combine")
     assert not field_mlp.fits(520, 512, 512, torch.bfloat16,
                               mode="pre_combine")
-    # the YOLO widths: f32 full_pe's 32 x 1792 latent tile (field_mlp.cu)
-    # does not fit (393,216 B); the f32 pre-combine kernel streams the
-    # latent (field_mlp_f32.cu, 204,992 B at any d_latent), and so does
-    # the tensor-core kernel of bf16
-    assert field_mlp.smem_bytes("full_pe", 4, 512, 1792) == 393216
+    # the YOLO widths: the f32 ring kernel streams the latent (204,992 B
+    # at any d_latent), and so does the tensor-core kernel of bf16
+    assert field_mlp.smem_bytes_f32(512) == 204992
     assert field_mlp.fits(42, 1792, 512, torch.bfloat16, "pre_combine_pe")
     assert field_mlp.fits(42, 1792, 512, torch.float32, "pre_combine_pe")
 

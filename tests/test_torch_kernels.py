@@ -308,16 +308,6 @@ def test_tc_lin_out_widths(cuda_device, mode, d_out, hidden):
 
 
 @pytest.mark.cuda
-def test_cuda_core_library_refuses_bf16(cuda_device):
-    """field_mlp.cu is f32 only: a bf16 launch of any mode is refused."""
-    lib = fm.load_library()["field_mlp"]
-    for mode in fm.MODES.values():
-        err = lib.field_mlp_launch(mode, 1, *([None] * 19), 64, 42, 64, 64,
-                                   1, 1, 4, 6, 1.5, None)
-        assert err != 0
-
-
-@pytest.mark.cuda
 def test_tc_kernel_raises_on_unaligned_h(cuda_device):
     mode, (h, w) = _tc_case(cuda_device, "post_narrow", 1, 9)
     flat = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda_device)
@@ -335,7 +325,7 @@ def test_tc_kernel_raises_on_unaligned_latent(cuda_device):
         fm.pre_combine_pe(base, shifted, w, code)
 
 
-# -- the f32 ring kernel (field_mlp_f32.cu: f32 modes 1 and 3) ----------------
+# -- the f32 ring kernel (field_mlp_f32.cu: every f32 mode) ------------------
 
 # (mode, d_in, d_latent, hidden): NeRF, use_code_viewdirs and YOLO widths,
 # then narrow ones (H / 64 columns a thread: 2 at 128, 3 at 192, 1 at 64,
@@ -379,15 +369,117 @@ def test_f32_ring_kernel_matches_twin(cuda_device, widths, n_pre, rows):
     assert err <= TOL[torch.float32] * ref.abs().max().item(), err
 
 
+# after the combine (modes 0 and 2): (mode, d_in, d_latent, hidden) at the
+# NeRF and YOLO widths (full_pe at dL 1792 too) and narrow ones (H 64, 128,
+# 192: 1, 2 and 3 columns a thread)
+RING_POST_WIDTHS = {
+    "full_nerf": ("full_pe", 42, 512, 512),
+    "full_yolo": ("full_pe", 42, 1792, 512),
+    "full_narrow": ("full_pe", 42, 48, 128),
+    "full_h64": ("full_pe", 42, 64, 64),
+    "post_nerf": ("post_combine", 42, 512, 512),
+    "post_yolo": ("post_combine", 42, 1792, 512),
+    "post_narrow": ("post_combine", 42, 48, 192),
+}
+# (widths, n_pre, n_post, d_out, rows): lin_in alone, one and three pre
+# blocks (full_pe; post_combine's h comes from three), lin_out alone, one
+# and two post blocks, lin_out 1, 4 (NeRF), 21 (YOLO: two lin_out stages)
+# and 64 wide; every row count of RING_ROWS with the two flagship heads
+# behind two post blocks, two row counts otherwise
+RING_POST_CASES = [
+    (wid, n_pre, n_post, d_out, rows)
+    for wid, (mode, *_) in RING_POST_WIDTHS.items()
+    for n_pre in ((0, 1, 3) if mode == "full_pe" else (3,))
+    for n_post in (0, 1, 2)
+    for d_out in (1, 4, 21, 64)
+    for rows in (RING_ROWS if n_post == 2 and d_out in (4, 21)
+                 else (33, 1037))
+]
+
+
 @pytest.mark.cuda
-def test_cuda_core_library_refuses_pre_combine_modes(cuda_device):
-    """field_mlp.cu runs only f32 full_pe and post_combine: a launch of
-    mode 1 or 3 is refused before it reaches the card."""
-    lib = fm.load_library()["field_mlp"]
-    for mode in (fm.MODES["pre_combine_pe"], fm.MODES["pre_combine"]):
-        err = lib.field_mlp_launch(mode, 0, *([None] * 19), 64, 42, 64, 64,
-                                   1, 1, 4, 6, 1.5, None)
-        assert err != 0
+@pytest.mark.parametrize("widths,n_pre,n_post,d_out,rows", RING_POST_CASES)
+def test_f32_ring_post_matches_twin(cuda_device, widths, n_pre, n_post,
+                                    d_out, rows):
+    """full_pe and post_combine on the ring kernel against their twins
+    within 1e-4 x max|twin|: the post blocks' stages after the pre blocks'
+    (or first), lin_out's one or more stages, ragged rows."""
+    mode, args = _tc_case(cuda_device, RING_POST_WIDTHS[widths], n_pre, rows,
+                          n_post, d_out, dtype=torch.float32)
+    assert fm.variant(mode, torch.float32) == "cuda_core_ring"
+    fm.reset_launches()
+    with torch.no_grad():
+        got = getattr(fm, mode)(*args)
+        ref = getattr(fm, mode + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert fm.variant_launches == {f"{mode}/cuda_core_ring": 1}
+    assert got.dtype == ref.dtype == torch.float32
+    assert got.shape == ref.shape == (rows, d_out)
+    assert bool(torch.isfinite(got).all())
+    err = (got - ref).abs().max().item()
+    assert err <= TOL[torch.float32] * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [512, 256])
+@pytest.mark.parametrize("d_out", [2, 8, 33, 100, 200, 256])
+@pytest.mark.parametrize("mode", ["full_pe", "post_combine"])
+def test_f32_ring_lin_out_widths(cuda_device, mode, d_out, hidden):
+    """lin_out up to the ring kernel's limit (256 columns: 4 groups of 8
+    a warp; 16 stages of 32 rows at H = 512) against the twin."""
+    _, args = _tc_case(cuda_device, (mode, 42, 64, hidden), 1, 1037,
+                       n_post=1, d_out=d_out, dtype=torch.float32)
+    fm.reset_launches()
+    with torch.no_grad():
+        got = getattr(fm, mode)(*args)
+        ref = getattr(fm, mode + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert fm.launches[mode] == 1
+    assert got.shape == ref.shape == (1037, d_out)
+    err = (got - ref).abs().max().item()
+    assert err <= TOL[torch.float32] * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,what", [
+    (mode, what) for mode in ("full_pe", "post_combine")
+    for what in ("w0p", "w1p", "w_out") + (("h",) if mode[0] == "p" else ())])
+def test_f32_ring_post_raises_on_unaligned(cuda_device, mode, what):
+    """The post stacks and w_out (bulk copies) and h (16-byte loads) must
+    be 16-byte aligned: a tensor 4 bytes off raises, and nothing launches."""
+    _, args = _tc_case(cuda_device, (mode, 42, 64, 64), 1, 9, n_post=1,
+                       d_out=21, dtype=torch.float32)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    args = list(args)
+    if what == "h":
+        args[0] = shifted(args[0])
+    else:
+        i = len(args) - 2 if mode == "full_pe" else 1
+        args[i] = dataclasses.replace(
+            args[i], **{what: shifted(getattr(args[i], what))})
+    fm.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        getattr(fm, mode)(*args)
+    assert sum(fm.launches.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_out,hidden", [(257, 512), (65, 64)])
+def test_f32_ring_refuses_wide_lin_out(cuda_device, d_out, hidden):
+    """No fallback past the lin_out limit (256, and no wider than
+    hidden): post_combine raises before anything launches."""
+    _, (h, w) = _tc_case(cuda_device, ("post_combine", 42, 64, hidden), 1,
+                         9, n_post=1, d_out=d_out, dtype=torch.float32)
+    fm.reset_launches()
+    with pytest.raises(ValueError, match="does not take"):
+        fm.post_combine(h, w)
+    assert sum(fm.launches.values()) == 0
 
 
 @pytest.mark.cuda
@@ -415,19 +507,25 @@ def test_f32_ring_raises_on_unaligned(cuda_device, what):
 
 
 @pytest.mark.cuda
-def test_f32_ring_library_refuses_unaligned(cuda_device):
-    """The C entry point itself refuses a latent 4 bytes off."""
-    mode, (base, lat, w, code) = _tc_case(cuda_device, "h64", 1, 9,
-                                          dtype=torch.float32)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_f32_ring_library_refuses_unaligned(cuda_device, mode):
+    """The C entry point itself refuses a latent (modes 0, 1) or an h
+    (mode 2) 4 bytes off, and a lin_out wider than hidden (modes 0, 2)."""
+    _, (base, lat, w, code) = _tc_case(cuda_device, "h64", 1, 9,
+                                       dtype=torch.float32)
     lib = fm.load_library()["field_mlp_f32"]
+    h = torch.zeros((9, 64), device=cuda_device)
     out = torch.empty((9, 64), device=cuda_device)
-    ptrs = [getattr(w, k).data_ptr() for k in fm.WEIGHT_NAMES[:8]]
-    for off in (0, 4):
+    ptrs = [getattr(w, k).data_ptr() for k in fm.WEIGHT_NAMES]
+    for off, d_out in ((0, 4), (4, 4), (0, 65)):
         err = lib.field_mlp_f32_launch(
-            1, base.data_ptr(), None, lat.data_ptr() + off, *ptrs,
-            out.data_ptr(), 8, 42, 64, 64, 1, 6, 1.5, None)
+            mode, base.data_ptr(), None,
+            h.data_ptr() + (off if mode == 2 else 0),
+            lat.data_ptr() + (0 if mode == 2 else off), *ptrs,
+            out.data_ptr(), 8, 42, 64, 64, 1, 2, d_out, 6, 1.5, None)
         torch.cuda.synchronize()
-        assert (err != 0) is (off != 0)
+        bad = off != 0 or (d_out > 64 and mode != 1)
+        assert (err != 0) is bad, (off, d_out, err)
 
 
 @pytest.mark.cuda

@@ -161,11 +161,17 @@ def test_fits_tensor_core_refusals():
     assert not fm.fits(42, 40, 512, bf16, "pre_combine_pe")    # dL % 16
     assert not fm.fits(42, 0, 512, bf16, "pre_combine")
     assert not fm.fits(520, 512, 512, bf16, "pre_combine")
-    # the CUDA-core variants keep their own limits: at dL 1792 f32 full_pe
-    # (field_mlp.cu, latent tile in shared memory) does not fit, f32
-    # pre_combine_pe (field_mlp_f32.cu, latent streamed) does
-    assert not fm.fits(42, 1792, 512, torch.float32, "full_pe")
+    # the f32 ring kernel keeps its own limits: at dL 1792 f32 full_pe and
+    # pre_combine_pe fit (field_mlp_f32.cu streams the latent in every
+    # mode); its lin_out takes any d_out up to 256, the tensor-core one a
+    # width of tc_out_width (both no wider than hidden)
+    assert fm.fits(42, 1792, 512, torch.float32, "full_pe")
     assert fm.fits(42, 1792, 512, torch.float32, "pre_combine_pe")
+    # (at hidden 192, d_out 150 rounds up to 256 > 192 on the tensor
+    # cores)
+    assert fm.fits(0, 0, 192, torch.float32, "post_combine", 150)
+    assert not fm.fits(0, 0, 192, bf16, "post_combine", 150)
+    assert not fm.fits(0, 0, 512, torch.float32, "post_combine", 300)
 
 
 def test_tensor_core_shared_memory():
@@ -180,12 +186,9 @@ def test_tensor_core_shared_memory():
 @pytest.mark.parametrize("mode", list(fm.MODES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_routing(mode, dtype):
-    """Every bf16 mode takes the tensor-core kernel, every f32 mode a
-    CUDA-core one: the ring kernel before the combine, field_mlp.cu
-    after it and for the whole MLP."""
-    want = "tensor_core" if dtype == torch.bfloat16 else (
-        "cuda_core_ring" if mode in ("pre_combine_pe", "pre_combine")
-        else "cuda_core")
+    """Every bf16 mode takes the tensor-core kernel, every f32 mode the
+    CUDA-core ring kernel."""
+    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core_ring"
     assert fm.variant(mode, dtype) == want
 
 
@@ -295,8 +298,9 @@ def test_fits_lin_out_modes(mode, d_out):
     assert fm.fits(520, 40, 512, bf16, mode, d_out) is (
         want and mode == "post_combine")
     assert fm.smem_bytes_tc(512) == 226384 <= fm.SMEM_LIMIT
-    # f32 stays on the CUDA cores, whose lin_out is a scalar loop
-    assert fm.fits(42, 512, 512, torch.float32, mode, d_out)
+    # f32 runs on the CUDA-core ring kernel, whose lin_out takes up to
+    # 256 columns too
+    assert fm.fits(42, 512, 512, torch.float32, mode, d_out) is want
 
 
 @pytest.mark.parametrize("d_out", [4, 21])
@@ -341,8 +345,9 @@ def test_replace_drops_the_packed_stream():
 @pytest.mark.parametrize("d_out,want", [(4, True), (21, True), (256, True),
                                         (300, False)])
 def test_can_fuse_needs_a_lin_out_width(d_out, want):
-    """A bf16 route ends in post_combine (or full_pe), so the model fuses
-    only when its lin_out has a tensor-core width; f32 keeps fusing."""
+    """A route ends in post_combine (or full_pe), so the model fuses only
+    when the kernel takes its lin_out: a tensor-core width in bf16, at
+    most 256 columns in f32 (the ring kernel)."""
     from types import SimpleNamespace
 
     from pixelnerf_yolo_torch.models.pixelnerf import PixelNeRF
@@ -350,7 +355,7 @@ def test_can_fuse_needs_a_lin_out_width(d_out, want):
     mlp = ResnetFC(42, d_out=d_out, n_blocks=5, d_latent=64, d_hidden=512,
                    combine_layer=3, dtype=torch.bfloat16,
                    generator=torch.Generator().manual_seed(0))
-    for dtype, expect in ((torch.bfloat16, want), (torch.float32, True)):
+    for dtype, expect in ((torch.bfloat16, want), (torch.float32, want)):
         model = SimpleNamespace(use_fused_mlp="auto", d_in=42,
                                 compute_dtype=dtype)
         for ns, mode in ((1, "full_pe"), (2, "full_pe"), (2, "pre_combine")):
