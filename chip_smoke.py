@@ -36,15 +36,27 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
   7. kernels: each field-MLP kernel against its plain twin on the card, in
      f32 and bf16, on 40,013 rows (a ragged tail) and at the row counts of
      its launches in the renders above; pre_combine_pe and post_combine
-     also at the YOLO widths (bf16 and f32), full_pe too in f32 (an NS=1
-     YOLO render's rows); times of the kernel, the twin and a cuBLAS
+     also at the YOLO widths (bf16 and f32), full_pe too (an NS=1 YOLO
+     render's rows); times of the kernel, the twin and a cuBLAS
      addmm chain at the first render launch's rows (TIMING_REPS launches
      per variant), beside the least
      time the card needs for that work, with TFLOP/s, kernel/bound and
-     kernel/library.
+     kernel/library;
+  8. training: the YOLO trainer at bench.py's train_yolo point
+     (config/flagship.py::train_yolo_conf: ELAN, 5 x 512 ResnetFC, 128
+     coarse samples, NS=3 of 4 views, one chunk of 1,024 rays) on one
+     scene held in memory, in bf16 and f32, through make_model /
+     make_renderer / make_trainer / train_step: one step through the
+     kernels (pre_combine_pe + post_combine forward, the plain module's
+     backward) and one without, from the same weights, batch, views and
+     draws, compared (losses, every parameter's gradient); then each
+     route's step time (median of 10 after 2 warm-up steps), peak memory
+     and stage split (CUDA events: encoder, render, loss, backward,
+     Adam), and the loss falling over 10 steps on one batch.
 The launch counters (per wrapper and per wrapper and variant) are zeroed
-just before each render path (3, 4, 5, 6) and read just after it; a
-kernel of a path that never launched fails it.
+just before each render path (3, 4, 5, 6) and each dtype's kernel-route
+training step (8) and read just after it; a kernel of a path that never
+launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -53,8 +65,12 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -356,7 +372,7 @@ def check_kernels(device, render_rows, yolo_rows):
                 kind, spec, dtype_name, [CHECK_ROWS, *render_rows[kind]],
                 device)
             ok &= kok
-    for kind in ("pre_combine_pe", "post_combine"):
+    for kind in ("full_pe", "pre_combine_pe", "post_combine"):
         kok, results[(kind, "yolo")] = check_kernel(
             kind, YOLO, "bfloat16", [CHECK_ROWS, *yolo_rows[kind]], device)
         ok &= kok
@@ -447,7 +463,8 @@ def render(models, ns, dtype_name, n_rays, device, fused: str):
     model, renderer = models[dtype_name]
     model.use_fused_mlp = fused
     images, poses, focal, rays = flagship_scene(ns, n_rays, device)
-    cond = model.encode(images, poses, focal)
+    with torch.no_grad():
+        cond = model.encode(images, poses, focal)
     g = torch.Generator(device=device).manual_seed(3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -509,7 +526,8 @@ def yolo_render(model, renderer, n_rays, device, fused: str, size=YOLO_SIZE,
 
     model.use_fused_mlp = fused
     images, poses, focal, c, target = yolo_scene(3, size)
-    cond = model.encode(images, poses, focal, c=c)
+    with torch.no_grad():
+        cond = model.encode(images, poses, focal, c=c)
     side = size // cell
     rays = gen_rays_yolo(torch.from_numpy(target).to(device), side, side,
                          focal[0] / cell, c[0] / cell, YOLO_NEAR,
@@ -735,6 +753,366 @@ def detection_path(models, device):
     return ok, launches
 
 
+# -- phase 8: training ----------------------------------------------------
+
+# the trainer's operating point (config/flagship.py::train_yolo_conf):
+# 256-px sources at image_scale 0.5 are 128x128 views; 4 views a scene,
+# the trainer picks NS=3 of them; a 4x4 grid of 32-px cells a view, so 48
+# real rays padded to one chunk of 1,024
+TRAIN_SIZE, TRAIN_VIEWS, TRAIN_NS = 128, 4, 3
+# [x, y, w, h, class] of each view's objects (fractions of the view)
+TRAIN_BOXES = [[0.30, 0.40, 0.06, 0.05, 0], [0.70, 0.60, 0.04, 0.08, 1],
+               [0.55, 0.20, 0.03, 0.03, 0]]
+# kernel route vs plain route from the same weights, batch and draws: each
+# reported loss relative; each parameter's gradient in relative L2.  f32:
+# summation order only.  bf16: the forwards differ by bf16 roundings (the
+# kernel rounds where the plain module does not, see RENDER_TOL), which
+# the loss's cotangent and the backward (the same plain module on both
+# routes) carry.
+TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}
+# Under the conf's "max" aggregation each (ray, anchor) cell sends its
+# prob gradient to one sample, its argmax, and a bf16 rounding that moves
+# the argmax reroutes that gradient (H100 runs read 5.4e-2 and 0.11 over
+# all cells).  So the bf16 step is taken again on both routes with the
+# real cells whose argmax differs between the routes set to ignore (-1),
+# and the gradients of the rest are held to the tolerance.  The moved
+# cells are counted and held to MAX_MOVED of the real cells: a kernel that
+# drops a layer or mixes rows moves most of them.  The same gradients
+# under the smooth SMOOTH_AGG aggregation, over every cell, are a further
+# reading held to the same tolerance.
+MAX_MOVED = 0.1
+SMOOTH_AGG = "soft_count"
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_STAGE_STEPS, TRAIN_FIT_STEPS = 2, 10, 3, 10
+STAGES = ("encoder", "render", "loss", "backward", "adam")
+
+
+def train_dataset(conf):
+    """One scene held in memory: seeded images, the extrinsics of
+    ``yolo_scene`` (its 3 source views and the target camera) and grid
+    targets from the port's ``YOLODataset._get_all_bboxes``.  No image
+    files, so neither imageio nor cv2 is needed."""
+    import numpy as np
+
+    from pixelnerf_yolo_torch.data.yolo import YOLODataset
+
+    _, poses, focal, c, target = yolo_scene(TRAIN_NS, TRAIN_SIZE)
+
+    class MemoryYOLODataset(YOLODataset):
+        def __init__(self):
+            self.set_target_conf(conf)
+            self.z_near, self.z_far, self.lindisp = YOLO_NEAR, YOLO_FAR, False
+            rng = np.random.default_rng(4)
+            images = rng.normal(size=(TRAIN_VIEWS, 3, TRAIN_SIZE,
+                                      TRAIN_SIZE)).astype(np.float32)
+            shift = np.array([0.05, 0.03, 0, 0, 0])
+            self.item = {
+                "path": "memory", "img_id": 0, "focal": focal[0],
+                "c": c[0], "images": images.clip(-1, 1),
+                "poses": np.concatenate([poses[0], target]),
+                "bboxes": [self._get_all_bboxes(
+                    (np.array(TRAIN_BOXES) + v * shift).tolist(),
+                    TRAIN_SIZE, TRAIN_SIZE) for v in range(TRAIN_VIEWS)],
+            }
+
+        def __len__(self):
+            return 1
+
+        def __getitem__(self, index):
+            return self.item
+
+    return MemoryYOLODataset()
+
+
+def train_args(tmp):
+    import argparse
+
+    args = argparse.Namespace(
+        name="chip_smoke", resume=False, logs_path=os.path.join(tmp, "logs"),
+        checkpoints_path=os.path.join(tmp, "ckpt"),
+        visual_path=os.path.join(tmp, "vis"), epochs=1, lr=1e-4, gamma=1.0,
+        batch_size=1, nviews=str(TRAIN_NS), freeze_enc=None,
+        no_bbox_step=100000, fixed_test=None, seed=0)
+    for d in (args.logs_path, args.visual_path,
+              os.path.join(args.checkpoints_path, args.name)):
+        os.makedirs(d, exist_ok=True)
+    return args
+
+
+def train_steps(trainer, batch, n, u=None, stages=False):
+    """n synchronized train steps: (host ms of each, losses of each, the
+    CUDA-event ms of each stage of each step when stages)."""
+    import torch
+
+    times, losses, split = [], [], []
+    for _ in range(n):
+        trainer.stage_events = [] if stages else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, u=u)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+        if stages:
+            ev = trainer.stage_events
+            split.append({ev[i][0]: ev[i - 1][1].elapsed_time(ev[i][1])
+                          for i in range(1, len(ev))})
+    trainer.stage_events = None
+    return times, losses, split
+
+
+@contextlib.contextmanager
+def sample_argmax(record: list):
+    """Appends to record, for each chunk the YOLO renderer aggregates, the
+    sample index of each (ray, anchor) cell's largest prob: the sample the
+    "max" aggregation sends the prob's gradient to."""
+    import torch
+
+    from pixelnerf_yolo_torch.render import yolo as render_yolo
+
+    aggregate = render_yolo.yolo_aggregate
+
+    def recording(out, **kwargs):
+        probs = torch.sigmoid(out[..., 0].detach().float())
+        record.append(probs.argmax(dim=1))
+        return aggregate(out, **kwargs)
+
+    render_yolo.yolo_aggregate = recording
+    try:
+        yield
+    finally:
+        render_yolo.yolo_aggregate = aggregate
+
+
+def ignoring(assemble, cells):
+    """The trainer's ``_assemble`` with the targets of the (ray, anchor)
+    cells in the boolean array cells (one scene: (rays, anchors)) set to
+    ignore."""
+
+    def masked(data):
+        out = list(assemble(data))
+        targets = out[5].copy()
+        assert targets.shape[0] == 1, "one scene a batch"
+        flat = targets.reshape(-1, *targets.shape[-2:])
+        flat[cells, 0] = -1.0
+        out[5] = flat.reshape(targets.shape)
+        return tuple(out)
+
+    return masked
+
+
+def grad_diff(gk, gp):
+    """(worst relative L2 of gk against gp over the parameters, its name,
+    the parameters with a gradient on one side only)."""
+    worst, worst_name, missing = 0.0, "", []
+    for name, g in gp.items():
+        h = gk[name]
+        if g is None or h is None:
+            if (g is None) != (h is None):
+                missing.append(name)
+            continue
+        den = g.float().norm().item()
+        diff = (h.float() - g.float()).norm().item()
+        err = diff / den if den > 0 else (0.0 if diff == 0 else math.inf)
+        if not math.isfinite(err):
+            err = math.inf
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, missing
+
+
+def train_path(device):
+    """Phase 8, in bf16 and f32: make_model / make_renderer / make_trainer
+    at the train_yolo point; one step on the kernel route and one on the
+    plain route from the same weights, batch, view choice and draws
+    (losses, every parameter's gradient, launches); then step times, peak
+    memory and the stage split of each route, and the loss falling over
+    TRAIN_FIT_STEPS steps on one batch.  Returns (ok, launches of one
+    kernel-route step per dtype, results)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    ok, step_launches, results = True, {}, {}
+    tmp = tempfile.mkdtemp()
+    try:
+        for dtype_name in ("bfloat16", "float32"):
+            good = train_one(device, dtype_name, tmp, step_launches, results)
+            torch.cuda.empty_cache()
+            if not good:
+                print(f"FAILED: training in {dtype_name}")
+            ok &= good
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, step_launches, results
+
+
+def train_one(device, dtype_name, tmp, step_launches, results) -> bool:
+    """Phase 8 in one compute dtype (see train_path)."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import train_yolo_conf
+    from pixelnerf_yolo_torch.data import DataLoader
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import make_trainer
+
+    conf = train_yolo_conf(dtype_name)
+    model = make_model(conf.get_config("model"), device=device, seed=0)
+    perturb_fc1(model, torch.Generator().manual_seed(2))
+    renderer = make_renderer(conf, device=device)
+    dset = train_dataset(conf)
+    batch = next(iter(DataLoader(dset, batch_size=1)))
+    trainer = make_trainer(train_args(os.path.join(tmp, dtype_name)),
+                           conf, dset, dset, model, renderer, [TRAIN_NS],
+                           device=device)
+    R = conf.get_int("yolo.ray_batch_size")
+    u = torch.rand((R, renderer.n_coarse), device=device,
+                   generator=torch.Generator(device=device).manual_seed(5))
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    view_rng = trainer._rng.bit_generator.state
+
+    def restart():
+        """The initial weights and running statistics, a fresh Adam and
+        the same view choice."""
+        model.load_state_dict(init)
+        trainer.init_opt_state(model.parameters())
+        trainer._rng.bit_generator.state = view_rng
+
+    def both_routes():
+        """One step on each route from the same start: per route (losses,
+        gradients, launches, each cell's argmax sample (rays, anchors))."""
+        route = {}
+        for fused in ("auto", "false"):
+            restart()
+            model.use_fused_mlp = fused
+            fm.reset_launches()
+            record = []
+            with sample_argmax(record):
+                _, losses, _ = train_steps(trainer, batch, 1, u=u)
+            route[fused] = (losses[0], {
+                n: None if p.grad is None else p.grad.detach().clone()
+                for n, p in model.named_parameters()},
+                dict(fm.variant_launches),
+                torch.cat(record)[:len(real)].cpu().numpy())
+        return route["auto"], route["false"]
+
+    restart()
+    A = renderer.num_anchors_per_scale
+    real = trainer._assemble(batch)[5][..., 0].reshape(-1, A) != -1
+    (lk, gk, launches, ak), (lp, gp, plain_launches, ap) = both_routes()
+    step_launches[dtype_name] = launches
+    var = fm.variant("pre_combine_pe", getattr(torch, dtype_name))
+    good = (launched(launches, "pre_combine_pe", var) > 0
+            and launched(launches, "post_combine", var) > 0
+            and sum(plain_launches.values()) == 0)
+    print(f"train {dtype_name}: launches of one kernel-route step "
+          f"{launches}; plain route {plain_launches}", flush=True)
+    loss_tol, grad_tol = TRAIN_TOL[dtype_name]
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30)
+                   for k in lp)
+    finite = all(math.isfinite(v) for v in lk.values())
+    good &= finite and loss_err <= loss_tol
+    worst, worst_name, missing = grad_diff(gk, gp)
+    print(f"  kernel vs plain route, one step: losses {lk} | plain {lp}; "
+          f"max relative loss diff {loss_err:.3e} (tol {loss_tol}); worst "
+          f"gradient relative L2 {worst:.3e} at {worst_name} over "
+          f"{len(gp)} parameters; gradient on one route only: {missing}",
+          flush=True)
+    moved = (ak != ap) & real
+    n_moved, n_real = int(moved.sum()), int(real.sum())
+    print(f"  argmax sample moved between the routes in {n_moved} of "
+          f"{n_real} real (ray, anchor) cells", flush=True)
+    res = {"launches": launches, "loss_err": loss_err,
+           "argmax_moved": n_moved, "real_cells": n_real,
+           "grad_err_all_cells": worst}
+    if dtype_name == "bfloat16":
+        moved_ok = n_moved <= MAX_MOVED * n_real
+        print(f"  moved cells at most {MAX_MOVED} of the real ones: "
+              f"{'ok' if moved_ok else 'FAILED'}", flush=True)
+        good &= moved_ok
+        trainer._assemble = ignoring(trainer._assemble, moved)
+        (_, gk, _, _), (_, gp, _, _) = both_routes()
+        del trainer._assemble
+        worst, worst_name, missing = grad_diff(gk, gp)
+        print(f"  the same with the {n_moved} moved cells ignored: worst "
+              f"gradient relative L2 {worst:.3e} at {worst_name}; gradient "
+              f"on one route only: {missing}", flush=True)
+        trainer.renderer = dataclasses.replace(renderer,
+                                               aggregation=SMOOTH_AGG)
+        (_, gks, _, _), (_, gps, _, _) = both_routes()
+        trainer.renderer = renderer
+        soft, soft_name, soft_missing = grad_diff(gks, gps)
+        print(f"  aggregation {SMOOTH_AGG!r}, every cell: worst gradient "
+              f"relative L2 {soft:.3e} at {soft_name}; gradient on one "
+              f"route only: {soft_missing}", flush=True)
+        soft_ok = soft <= grad_tol and not soft_missing
+        print(f"  {SMOOTH_AGG!r} gradients within {grad_tol} relative L2: "
+              f"{'ok' if soft_ok else 'FAILED'}", flush=True)
+        good &= soft_ok
+        res["grad_err_soft"] = soft
+    grads_ok = worst <= grad_tol and not missing
+    print(f"  gradients within {grad_tol} relative L2: "
+          f"{'ok' if grads_ok else 'FAILED'}", flush=True)
+    good &= grads_ok
+    res["grad_err"] = worst
+    for fused, label in (("auto", "kernel"), ("false", "plain")):
+        restart()
+        model.use_fused_mlp = fused
+        train_steps(trainer, batch, TRAIN_WARMUP)
+        torch.cuda.reset_peak_memory_stats()
+        times, _, _ = train_steps(trainer, batch, TRAIN_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, _, split = train_steps(trainer, batch, TRAIN_STAGE_STEPS,
+                                  stages=True)
+        ms = statistics.median(times)
+        stages = {k: statistics.median([s[k] for s in split])
+                  for k in STAGES}
+        res[label] = {"ms_median": ms, "ms_min": min(times),
+                      "ms_max": max(times), "peak_gib": peak,
+                      "stages_ms": stages}
+        print(f"  {label:6s} route: {ms:.3f} ms/step median of "
+              f"{TRAIN_TIMED} (min {min(times):.3f}, max {max(times):.3f}) "
+              f"after {TRAIN_WARMUP} warm-up steps; peak memory "
+              f"{peak:.2f} GiB; stage split (CUDA events, median of "
+              f"{TRAIN_STAGE_STEPS} steps, ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
+              flush=True)
+    print(f"  kernel / plain route step time "
+          f"{res['kernel']['ms_median'] / res['plain']['ms_median']:.3f}",
+          flush=True)
+
+    restart()
+    model.use_fused_mlp = "auto"
+    fit = []
+    # a step reports the loss before its update: step 11 reads the
+    # loss after 10 updates
+    for _ in range(TRAIN_FIT_STEPS + 1):
+        trainer._rng.bit_generator.state = view_rng
+        fit += train_steps(trainer, batch, 1, u=u)[1]
+    first, last = fit[0]["t"], fit[-1]["t"]
+    fell = math.isfinite(last) and last < first
+    print(f"  loss on one batch (same views and draws) before and after "
+          f"{TRAIN_FIT_STEPS} kernel-route steps: {first:.6f} -> "
+          f"{last:.6f} {'ok' if fell else 'FAILED: the loss did not fall'}",
+          flush=True)
+    good &= fell
+    # the kernels' weights after those Adam steps (foreach on the card):
+    # the cache keyed on the parameters' versions holds the new values
+    cdt = getattr(torch, dtype_name)
+    cached = fm.stacked_params(model.mlp_coarse, cdt)
+    fresh = fm.stack_params(model.mlp_coarse, cdt)
+    current = all(torch.equal(getattr(cached, k), getattr(fresh, k))
+                  for k in fm.WEIGHT_NAMES)
+    print(f"  kernel weights after the steps match the parameters: "
+          f"{'ok' if current else 'FAILED: stale'}", flush=True)
+    good &= current
+    res.update(fit_first=first, fit_last=last)
+    results[dtype_name] = res
+    return good
+
+
 def main() -> int:
     import torch
 
@@ -761,7 +1139,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-7; prints the kernels line; True when every check held."""
+    """Phases 2-8; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -844,9 +1222,14 @@ def run(device) -> bool:
 
     kok, res = check_kernels(device, render_rows, yolo_rows)
     ok &= kok
+
+    tok, train_launches, _ = train_path(device)
+    ok &= tok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
-             "viewdirs": vd_launches}
+             "viewdirs": vd_launches,
+             "train_step": train_launches["bfloat16"],
+             "train_step_f32": train_launches["float32"]}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

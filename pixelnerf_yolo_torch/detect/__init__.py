@@ -8,6 +8,7 @@ from .boxes import (
     calculate_precision_recall_f1,
     calculate_tp_fp_fn,
     convert_cells_to_bboxes,
+    draw_bounding_boxes,
     iou,
     nms,
     suppress_cross_scale,
@@ -25,6 +26,7 @@ __all__ = [
     "calculate_tp_fp_fn",
     "convert_cells_to_bboxes",
     "decode_cells",
+    "draw_bounding_boxes",
     "iou",
     "map_from_raw_boxes",
     "match_image_detections",

@@ -1,7 +1,7 @@
 """Detection box ops: IoU, cell->bbox decode, NMS, TP/FP/FN matching.
 
-A copy of pixelnerf_yolo_tpu/detect/boxes.py (pure numpy), without the
-cv2 drawing helper.  Parity: the reference's util.py:576-805.  These are the
+A copy of pixelnerf_yolo_tpu/detect/boxes.py (numpy; cv2 only for the
+drawing helper, imported where it draws).  Parity: the reference's util.py:576-805.  These are the
 postprocessing ops of the YOLO pipeline.  The decode is vectorized numpy
 (the reference builds python lists per cell); NMS and matching are
 host-side like the reference, with the reference's exact greedy semantics —
@@ -251,3 +251,49 @@ def calculate_precision_recall_f1(tp: int, fp: int, fn: int):
         else 0
     )
     return precision, recall, f1
+
+
+def draw_bounding_boxes(image: np.ndarray, boxes: list) -> np.ndarray:
+    """Draw class-colored boxes and labels (needs cv2)."""
+    import cv2
+
+    colors = [(1.0, 0.48, 0.0), (0.0, 0.79, 0.14)]
+    class_names = ["Human", "Car"]
+    img = np.array(image)
+    h, w, _ = img.shape
+    # cv2 >= 5 requires uint8 for text drawing; draw on a uint8 canvas and
+    # return in the input's float [0,1] range like the reference
+    was_float = np.issubdtype(img.dtype, np.floating)
+    if was_float:
+        output_image = np.ascontiguousarray(
+            (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        )
+        colors = [tuple(int(c * 255) for c in col) for col in colors]
+    else:
+        output_image = img.copy()
+    for box in boxes:
+        class_pred = int(box[0])
+        b = box[2:]
+        ulx = int((b[0] - b[2] / 2) * w)
+        uly = int((b[1] - b[3] / 2) * h)
+        lrx = int((b[0] + b[2] / 2) * w)
+        lry = int((b[1] + b[3] / 2) * h)
+        ulx = min(max(ulx, 0), w - 1)
+        uly = min(max(uly, 0), h - 1)
+        lrx = min(max(lrx, 0), w - 1)
+        lry = min(max(lry, 0), h - 1)
+        cv2.rectangle(
+            output_image, (ulx, uly), (lrx, lry), colors[class_pred], thickness=1
+        )
+        cv2.putText(
+            output_image,
+            class_names[class_pred],
+            (ulx, uly - 5),
+            cv2.FONT_HERSHEY_SIMPLEX,
+            0.25,
+            colors[class_pred],
+            thickness=1,
+        )
+    if was_float:
+        return output_image.astype(np.float32) / 255.0
+    return output_image

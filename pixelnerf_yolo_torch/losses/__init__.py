@@ -1,5 +1,5 @@
-"""Loss layer: for now only the box IoU that detection uses."""
+"""Loss layer: the YOLO detection loss and its box IoU."""
 
-from .yolo import iou_xywh
+from .yolo import YoloLoss, iou_xywh
 
-__all__ = ["iou_xywh"]
+__all__ = ["YoloLoss", "iou_xywh"]

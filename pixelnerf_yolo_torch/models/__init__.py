@@ -6,15 +6,17 @@ from .encoder import SpatialEncoder, make_encoder
 from .pixelnerf import CondState, PixelNeRF, make_mlp
 
 
-def make_model(conf, device="cuda", seed: int = 0) -> PixelNeRF:
+def make_model(conf, device="cuda", seed: int = 0,
+               stop_encoder_grad: bool = False) -> PixelNeRF:
     """Build the model with random weights drawn from ``seed`` and move it,
     in eval mode, to ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU).  stop_encoder_grad freezes the encoder (``--freeze_enc``)."""
     model_type = conf.get_string("type", "pixelnerf")
     if model_type != "pixelnerf":
         raise NotImplementedError("Unsupported model type", model_type)
     generator = torch.Generator().manual_seed(seed)
-    return PixelNeRF(conf, generator=generator).to(device).eval()
+    return PixelNeRF(conf, generator=generator,
+                     stop_encoder_grad=stop_encoder_grad).to(device).eval()
 
 
 __all__ = [

@@ -48,11 +48,13 @@ class SpatialEncoder(nn.Module):
     def latent_size(self) -> int:
         return spatial_latent_size(self.backbone, self.num_layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """:param x (B, H, W, 3) NHWC, values in [-1, 1]
+        :param train BatchNorm on the batch's statistics, updating the
+          running ones
         :return latent (B, Hl, Wl, C), f32 unless every map kept its size
         """
-        latents = self.model(x.permute(0, 3, 1, 2), self.cdt)
+        latents = self.model(x.permute(0, 3, 1, 2), self.cdt, train)
         # the reference's "nearest " conf value (trailing space) turns
         # align_corners off for the upsampling; any other value keeps it on
         align = self.index_interp != "nearest "

@@ -15,11 +15,21 @@ positional encoding inside the kernel when ``_pe_fusible`` holds
 (``fused_pe_forward``), on precomputed z-features otherwise
 (``fused_forward``); through the plain ResnetFC when it does not.  On CPU
 tensors the fused routes run the kernels' plain twins.
+
+``encode`` and ``forward`` record autograd graphs unless the caller runs
+them under ``torch.no_grad()``, as inference must.  The fused routes go
+through the autograd Functions of ops/field_mlp.py (kernel forward,
+plain-module backward), which keep nothing when no gradient is wanted.
+``encode(train=True)`` runs
+BatchNorm on the batch's statistics and updates the running ones;
+``stop_encoder_grad`` (``--freeze_enc``) keeps the encoder in eval mode
+and detaches its latent.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -72,13 +82,16 @@ _UNPORTED = {
 class PixelNeRF(nn.Module):
     """Config-driven model, NeRF or YOLO mode (``mlp_coarse.yolo``).
 
-    Usage:
+    Usage (inference; without ``torch.no_grad()`` both calls record an
+    autograd graph and keep the encoder's activations alive):
       model = make_model(conf.get_config("model"), device="cuda")
-      cond = model.encode(images, poses, focal, c=c)
-      out = model.forward(cond, xyz, viewdirs=dirs, coarse=True)
+      with torch.no_grad():
+          cond = model.encode(images, poses, focal, c=c)
+          out = model.forward(cond, xyz, viewdirs=dirs, coarse=True)
     """
 
-    def __init__(self, conf, generator: torch.Generator | None = None):
+    def __init__(self, conf, generator: torch.Generator | None = None,
+                 stop_encoder_grad: bool = False):
         super().__init__()
         for key, what in _UNPORTED.items():
             if conf.get_bool(key, False):
@@ -91,6 +104,9 @@ class PixelNeRF(nn.Module):
         self.encoder = make_encoder(conf.get_config("encoder"),
                                     dtype=self.compute_dtype,
                                     generator=generator)
+        if conf.get_bool("encoder.pretrained", True):
+            _no_pretrained_graft(self.encoder.backbone)
+        self.stop_encoder_grad = stop_encoder_grad
         self.use_xyz = conf.get_bool("use_xyz", False)
         self.normalize_z = conf.get_bool("normalize_z", True)
         self.use_code = conf.get_bool("use_code", False)
@@ -131,8 +147,8 @@ class PixelNeRF(nn.Module):
 
     # -- encoding ------------------------------------------------------------
 
-    @torch.no_grad()
-    def encode(self, images, poses, focal, c=None) -> CondState:
+    def encode(self, images, poses, focal, c=None,
+               train: bool = False) -> CondState:
         """Encode source views into a CondState.
 
         :param images (NS, 3, H, W) or (SB, NS, 3, H, W), values in [-1, 1]
@@ -140,6 +156,9 @@ class PixelNeRF(nn.Module):
           mode, world-to-camera extrinsics in YOLO mode
         :param focal () or (2,) or (SB, 2)
         :param c None or (2,) or (SB, 2)
+        :param train BatchNorm on the batch's statistics, updating the
+          running ones (not with stop_encoder_grad, which also detaches the
+          latent)
         """
         dev = self.device
         f32 = torch.float32
@@ -152,7 +171,12 @@ class PixelNeRF(nn.Module):
         else:
             num_views_per_obj = 1
 
-        latent = self.encoder(images.permute(0, 2, 3, 1))  # (B, Hl, Wl, C)
+        x = images.permute(0, 2, 3, 1)
+        if self.stop_encoder_grad:
+            with torch.no_grad():
+                latent = self.encoder(x)  # (B, Hl, Wl, C)
+        else:
+            latent = self.encoder(x, train=train)
         B, Hl, Wl, C = latent.shape
         latent_flat = latent.reshape(B, Hl * Wl, C).to(self.compute_dtype)
 
@@ -254,6 +278,13 @@ class PixelNeRF(nn.Module):
         _, xyz_cam = self._to_camera(cond, xyz)
         if self.yolo:
             uv = xyz_cam[:, :, :2] / xyz_cam[:, :, 2:]
+            # the latents at camera z >= 0 are zeroed below; their uv is
+            # zeroed here too, so that a point on the z = 0 plane (uv +-inf
+            # or NaN, bilinear weights NaN) carries no NaN into the latent
+            # table's gradient through the zero weights (the forward is the
+            # same; the JAX package's gradient is NaN there)
+            uv = torch.where((xyz_cam[:, :, 2:] >= 0), torch.zeros_like(uv),
+                             uv)
         else:
             uv = -xyz_cam[:, :, :2] / xyz_cam[:, :, 2:]
         focal, cc = cond.focal, cond.c
@@ -274,7 +305,6 @@ class PixelNeRF(nn.Module):
             latent = torch.where(torch.isnan(latent), zero, latent)
         return latent
 
-    @torch.no_grad()
     def forward(self, cond: CondState, xyz: torch.Tensor, coarse: bool = True,
                 viewdirs: Optional[torch.Tensor] = None,
                 latent: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -314,9 +344,8 @@ class PixelNeRF(nn.Module):
         if fuse_pe:
             # PE runs inside the kernel: ship only [xyz_rot, viewdirs_rot]
             base = torch.cat([xyz_rot.reshape(-1, 3), vd], dim=1)
-            out = field_mlp.fused_pe_forward(
-                mlp, latent, base, NS, B, self.compute_dtype, self.code
-            )
+            out = field_mlp.fused_field(mlp, latent, base, NS, B,
+                                        self.compute_dtype, self.code)
         else:
             if self.use_xyz:
                 z_feature = (xyz_rot if self.normalize_z else xyz_cam)
@@ -331,9 +360,8 @@ class PixelNeRF(nn.Module):
             if self.use_code and self.use_code_viewdirs:
                 z_feature = self.code(z_feature)
             if fuse:
-                out = field_mlp.fused_forward(
-                    mlp, latent, z_feature, NS, B, self.compute_dtype
-                )
+                out = field_mlp.fused_field(mlp, latent, z_feature, NS, B,
+                                            self.compute_dtype)
             else:
                 # concatenated in f32, cast to the compute dtype by the MLP
                 mlp_input = torch.cat([latent.float(), z_feature.float()],
@@ -345,3 +373,19 @@ class PixelNeRF(nn.Module):
         rgb = torch.sigmoid(out[..., :3])
         sigma = torch.relu(out[..., 3:4])
         return torch.cat([rgb, sigma], dim=-1).reshape(SB, B, -1)
+
+
+def _no_pretrained_graft(backbone: str) -> None:
+    """``encoder.pretrained = True``: the JAX package grafts ported
+    torchvision ImageNet weights over a ResNet's random init
+    (``PixelNeRF._maybe_load_pretrained``) and warns and keeps the random
+    init when the npz is missing, as it is in this repo.  The port has no
+    graft yet (ROADMAP.md Queue 1 item 16): it warns and keeps the random
+    init."""
+    if not backbone.startswith("resnet"):
+        print(f"encoder init: random (no pretrained source for backbone "
+              f"{backbone!r})")
+        return
+    warnings.warn("encoder.pretrained = True, but the pretrained backbone "
+                  "graft is not ported yet (ROADMAP.md Queue 1 item 16); "
+                  "proceeding with RANDOM encoder init")

@@ -10,8 +10,9 @@ The submodules carry the flax module names (``ConvBnAct_i``,
 maps onto a state_dict key by joining it with dots (``convert.py``).
 
 Precision as in nn/resnet.py: parameters are f32, convolutions run in the
-compute dtype, BatchNorm (eval mode, eps 1e-3) normalizes in f32 and casts
-back; SiLU is ``x * sigmoid(x)`` in the compute dtype, as flax computes it.
+compute dtype, BatchNorm (eps 1e-3, momentum 0.97; batch statistics with
+``train=True``) normalizes in f32 and casts back; SiLU is
+``x * sigmoid(x)`` in the compute dtype, as flax computes it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..nn.resnet import batch_norm, conv
 YOLO_BACKBONE_DIMS = [256, 512, 1024]  # strides 8, 16, 32
 YOLO_BACKBONE_LATENT = sum(YOLO_BACKBONE_DIMS)  # 1792
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97
 
 
 class ConvBnAct(nn.Module):
@@ -43,8 +45,10 @@ class ConvBnAct(nn.Module):
                 0.0, math.sqrt(1.0 / (c_in * kernel * kernel)),
                 generator=generator)
 
-    def forward(self, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
-        x = batch_norm(conv(x, self.Conv_0, cdt), self.BatchNorm_0, cdt)
+    def forward(self, x: torch.Tensor, cdt: torch.dtype,
+                train: bool = False) -> torch.Tensor:
+        x = batch_norm(conv(x, self.Conv_0, cdt), self.BatchNorm_0, cdt,
+                       train, BN_MOMENTUM)
         return x * torch.sigmoid(x)
 
 
@@ -65,16 +69,17 @@ class ELANBlock(nn.Module):
             self.add_module(f"ConvBnAct_{i}",
                             ConvBnAct(ci, co, k, generator=generator))
 
-    def forward(self, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
-        a = self.ConvBnAct_0(x, cdt)
-        y = self.ConvBnAct_1(x, cdt)
+    def forward(self, x: torch.Tensor, cdt: torch.dtype,
+                train: bool = False) -> torch.Tensor:
+        a = self.ConvBnAct_0(x, cdt, train)
+        y = self.ConvBnAct_1(x, cdt, train)
         taps = [a, y]
         for i in range(self.depth):
-            y = getattr(self, f"ConvBnAct_{2 + 2 * i}")(y, cdt)
-            y = getattr(self, f"ConvBnAct_{3 + 2 * i}")(y, cdt)
+            y = getattr(self, f"ConvBnAct_{2 + 2 * i}")(y, cdt, train)
+            y = getattr(self, f"ConvBnAct_{3 + 2 * i}")(y, cdt, train)
             taps.append(y)
         last = getattr(self, f"ConvBnAct_{2 + 2 * self.depth}")
-        return last(torch.cat(taps, dim=1), cdt)
+        return last(torch.cat(taps, dim=1), cdt, train)
 
 
 class YOLOBackbone(nn.Module):
@@ -104,10 +109,11 @@ class YOLOBackbone(nn.Module):
             self.add_module(name, mod)
             self.order.append(name)
 
-    def forward(self, x: torch.Tensor, cdt: torch.dtype) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, cdt: torch.dtype,
+                train: bool = False) -> list[torch.Tensor]:
         feats = []
         for name in self.order:
-            x = getattr(self, name)(x, cdt)
+            x = getattr(self, name)(x, cdt, train)
             if name in self.TAPS:
                 feats.append(x)
         return feats

@@ -23,6 +23,14 @@ a ring of bulk and TMA copies (csrc/field_mlp_f32.cu, no packing:
 Each wrapper runs its plain twin (``*_plain``: the same function with the
 same rounding points, in plain torch) when its tensors lie on the CPU,
 launches its kernel when they lie on a CUDA device, and raises otherwise.
+
+Training goes through two autograd Functions, ``FusedResnetFC`` and
+``FusedResnetFCPE`` (the JAX package's ``custom_vjp``s ``fused_resnetfc``
+and ``fused_resnetfc_pe``): the forward runs the kernels on detached
+inputs and keeps only the latent, the z-features (or the PE base) and the
+parameters; the backward recomputes the plain ResnetFC (nn/resnetfc.py)
+on them and returns its gradients.  There is no backward kernel, as there
+is none in the JAX package.
 ``launches`` counts kernel launches per wrapper, ``variant_launches``
 per wrapper and variant ("mode/variant").
 
@@ -785,3 +793,72 @@ def fused_forward(mlp, latent, zfeat, ns: int, inner_b: int,
     h = pre_combine(zfeat.to(compute_dtype).contiguous(),
                     latent.to(compute_dtype).contiguous(), w)
     return _combine_post(h, w, ns, inner_b)
+
+
+# -- autograd ----------------------------------------------------------------
+
+
+def plain_field(mlp, params: dict, latent, zfeat, ns: int, inner_b: int):
+    """The plain ResnetFC with the given parameters on [latent, zfeat], both
+    cast to f32 (the JAX package's ``xla_fallback``).
+
+    :return (SB*B, d_out) f32
+    """
+    zx = torch.cat([latent.float(), zfeat.float()], dim=-1)
+    out = torch.func.functional_call(mlp, params, (zx,),
+                                     {"combine_inner_dims": (ns, inner_b)})
+    return out.reshape(-1, mlp.d_out)
+
+
+class _FusedField(torch.autograd.Function):
+    """Kernel forward, plain-module backward; ``apply(mlp, code, ns,
+    inner_b, compute_dtype, latent, x, *mlp.parameters())`` with x the
+    z-features (code None) or the PE base."""
+
+    @staticmethod
+    def forward(ctx, mlp, code, ns, inner_b, compute_dtype, latent, x,
+                *params):
+        ctx.mlp, ctx.code, ctx.ns, ctx.inner_b = mlp, code, ns, inner_b
+        ctx.save_for_backward(latent, x, *params)
+        if code is None:
+            return fused_forward(mlp, latent, x, ns, inner_b, compute_dtype)
+        return fused_pe_forward(mlp, latent, x, ns, inner_b, compute_dtype,
+                                code)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[5:]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        names = [name for name, _ in ctx.mlp.named_parameters()]
+        with torch.enable_grad():
+            latent, x = inputs[:2]
+            zfeat = x if ctx.code is None else pe_features(x, ctx.code)
+            out = plain_field(ctx.mlp, dict(zip(names, inputs[2:])), latent,
+                              zfeat, ctx.ns, ctx.inner_b)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        return (None,) * 5 + tuple(next(grads) if t.requires_grad else None
+                                   for t in inputs)
+
+
+class FusedResnetFC(_FusedField):
+    """``fused_forward`` with the plain module's gradients (JAX
+    ``fused_resnetfc``): ``FusedResnetFC.apply(mlp, None, ns, inner_b,
+    compute_dtype, latent, zfeat, *mlp.parameters())``."""
+
+
+class FusedResnetFCPE(_FusedField):
+    """``fused_pe_forward`` with the plain module's gradients, the PE taken
+    in the recompute first (JAX ``fused_resnetfc_pe``):
+    ``FusedResnetFCPE.apply(mlp, code, ns, inner_b, compute_dtype, latent,
+    base, *mlp.parameters())``."""
+
+
+def fused_field(mlp, latent, x, ns: int, inner_b: int,
+                compute_dtype: torch.dtype, code=None) -> torch.Tensor:
+    """The fused field, differentiable: ``fused_pe_forward`` on the PE base
+    x when code is given, else ``fused_forward`` on the z-features x."""
+    fn = FusedResnetFC if code is None else FusedResnetFCPE
+    return fn.apply(mlp, code, ns, inner_b, compute_dtype, latent, x,
+                    *mlp.parameters())

@@ -57,13 +57,17 @@ class YoloRenderer:
 
     @torch.no_grad()
     def __call__(self, model, cond, rays, generator=None, u=None):
-        """Render detections along rays.
+        """Render detections along rays, for inference (no autograd graph).
 
         :param rays (B, 8) or (SB, B, 8), moved to the renderer's device
         :param generator torch.Generator for the coarse draws
         :param u optional (SB*B, n_coarse) uniform draws, scene-major
         :return (B, A, 7) or (SB, B, A, 7) = [prob, x, y, w, h, c0, c1]
         """
+        return self.render(model, cond, rays, generator=generator, u=u)
+
+    def render(self, model, cond, rays, generator=None, u=None):
+        """``__call__`` with autograd: the training render."""
         rays = _tensor(rays, self.device)
         scene_axis = rays.ndim == 3
         if not scene_axis:

@@ -1,13 +1,15 @@
 """Camera ray generation.
 
-Counterpart of ``gen_rays``, ``unproj_map``, ``_expand_focal`` and
-``gen_rays_yolo`` in pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
+Counterpart of ``gen_rays``, ``unproj_map``, ``_expand_focal``,
+``gen_rays_yolo`` and ``gen_rays_yolo_np`` in
+pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
 OpenGL-style camera (x right, y up, z backward) and camera-to-world poses.
 YOLO mode: world-to-camera extrinsics and a pinhole K (z forward).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -98,3 +100,33 @@ def gen_rays_yolo(poses, width: int, height: int, focal, c, z_near,
     fars = torch.full((n, height, width, 1), float(z_far), dtype=f32,
                       device=device)
     return torch.cat([origins, dirs, nears, fars], dim=-1)
+
+
+def gen_rays_yolo_np(poses, width: int, height: int, focal, c, z_near,
+                     z_far) -> np.ndarray:
+    """``gen_rays_yolo`` on the host in numpy (the trainer's batch
+    assembly), with the JAX package's numpy arithmetic.
+
+    :param poses (B, 4, 4) world-to-camera extrinsics
+    :return (B, H, W, 8) float32
+    """
+    poses = np.asarray(poses, dtype=np.float32)
+    B = poses.shape[0]
+    f = np.asarray(focal, dtype=np.float32).reshape(-1)
+    cc = np.asarray(c, dtype=np.float32).reshape(-1)
+    K = np.array([[f[0], 0.0, cc[0]], [0.0, f[1], cc[1]], [0.0, 0.0, 1.0]],
+                 dtype=np.float32)
+    K_inv = np.linalg.inv(K)
+    gx = np.arange(width, dtype=np.float32) + 0.49
+    gy = np.arange(height, dtype=np.float32) + 0.49
+    X, Y = np.meshgrid(gx, gy, indexing="xy")
+    pix = np.stack([X, Y, np.ones_like(X)], axis=-1)
+    dirs_cam = np.einsum("ij,hwj->hwi", K_inv, pix)
+    inv_ext = np.linalg.inv(poses)
+    dirs_world = np.einsum("bij,hwj->bhwi", inv_ext[:, :3, :3], dirs_cam)
+    origins = np.broadcast_to(inv_ext[:, None, None, :3, 3],
+                              (B, height, width, 3))
+    nears = np.full((B, height, width, 1), z_near, dtype=np.float32)
+    fars = np.full((B, height, width, 1), z_far, dtype=np.float32)
+    return np.concatenate(
+        [origins, dirs_world.astype(np.float32), nears, fars], axis=-1)

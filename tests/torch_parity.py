@@ -140,3 +140,126 @@ def to_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+# -- YOLO training ---------------------------------------------------------
+
+
+def train_args(tmp_path, name, **extra):
+    """The trainers' argparse namespace (train/train.py's flags), with the
+    run's directories under tmp_path."""
+    import argparse
+    import os
+
+    args = argparse.Namespace(
+        name=name, resume=False, gpu_id=[0],
+        logs_path=str(tmp_path / "logs"),
+        checkpoints_path=str(tmp_path / "checkpoints"),
+        visual_path=str(tmp_path / "visuals"),
+        epochs=1, lr=1e-4, gamma=1.0, ray_batch_size=32, batch_size=1,
+        nviews="3", freeze_enc=None, no_bbox_step=100000, fixed_test=None,
+        seed=0)
+    for k, v in extra.items():
+        setattr(args, k, v)
+    for d in (os.path.join(args.checkpoints_path, name),
+              os.path.join(args.visual_path, name), args.logs_path):
+        os.makedirs(d, exist_ok=True)
+    return args
+
+
+def yolo_train_conf(parse, use_fused_mlp, compute_dtype="float32"):
+    """The JAX package's dry-run YOLO trainer conf (resnet18 with 2 layers,
+    d_hidden 64, 16 coarse samples, 16-ray chunks) through ``parse`` (either
+    package's hocon); the JAX package's bf16 latent pre-projection off."""
+    from __graft_entry__ import _DRYRUN_YOLO_CONF
+
+    conf = parse(_DRYRUN_YOLO_CONF)
+    conf.put("model.use_fused_mlp", use_fused_mlp)
+    conf.put("model.compute_dtype", compute_dtype)
+    conf.put("model.latent_preproject", False)
+    return conf
+
+
+def jax_yolo_trainer(root, tmp_path, use_fused_mlp, compute_dtype="float32",
+                     freeze_enc=False):
+    """A JAX YOLOTrainer on the dataset at root with perturbed weights
+    (every MLP weight and the encoder's BatchNorm moved off its init)."""
+    from pixelnerf_yolo_tpu.config.hocon import parse_string
+    from pixelnerf_yolo_tpu.data import get_split_dataset
+    from pixelnerf_yolo_tpu.models import make_model
+    from pixelnerf_yolo_tpu.parallel import bind_parallel
+    from pixelnerf_yolo_tpu.render import make_renderer
+    from pixelnerf_yolo_tpu.train import make_trainer
+
+    conf = yolo_train_conf(parse_string, use_fused_mlp, compute_dtype)
+    dset, val_dset, _ = get_split_dataset("yolo", root, conf=conf)
+    jm = make_model(conf.get_config("model"), stop_encoder_grad=freeze_enc)
+    jr = make_renderer(conf)
+    jtr = make_trainer(train_args(tmp_path, "jax"), conf, dset, val_dset, jm,
+                       jr, bind_parallel(jr, jm, gpus=[0]), [3])
+    v = perturbed_variables(jm, np.zeros((3, 3, 32, 32), np.float32),
+                            encoder_stats=True)
+    jtr.variables = jax.tree.map(jnp.asarray, v)
+    jtr.init_opt_state(jtr.variables["params"])
+    return jtr, v
+
+
+def port_yolo_trainer(root, tmp_path, variables, use_fused_mlp,
+                      compute_dtype="float32", freeze_enc=False, **extra):
+    """The port's YOLOTrainer on the CPU with the JAX variables' weights."""
+    from pixelnerf_yolo_torch.config.hocon import parse_string
+    from pixelnerf_yolo_torch.convert import from_jax_variables
+    from pixelnerf_yolo_torch.data import get_split_dataset
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import make_trainer
+
+    conf = yolo_train_conf(parse_string, use_fused_mlp, compute_dtype)
+    dset, val_dset, _ = get_split_dataset("yolo", root, conf=conf)
+    model = make_model(conf.get_config("model"), device="cpu",
+                       stop_encoder_grad=freeze_enc)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    return make_trainer(train_args(tmp_path, "port", **extra), conf, dset,
+                        val_dset, model, make_renderer(conf, device="cpu"),
+                        [3], device="cpu")
+
+
+def jax_yolo_update(jtr, batch):
+    """One update of the JAX trainer's own jitted ``_build_update()`` on
+    batch, with the view choice of its ``_rng`` and the coarse draws of the
+    first key its calc_losses would split off.  Returns (reported losses
+    (5,), parameter gradients, updated variables, coarse draws), the
+    gradients from the same loss assembly as its compute_losses."""
+    jm, jr, yl = jtr.model, jtr.renderer, jtr.yolo_loss
+    A = jtr.num_anchors_per_scale
+    (si, sp, focal, c, rays, tg, anc, n_real, _) = jtr._assemble(batch)
+    _, sub = jax.random.split(jax.random.PRNGKey(2))  # seed + 2
+    SB, k, R = rays.shape[:3]
+    u = jax_yolo_draws(sub, SB * k * R, jr.n_coarse)
+    variables = jtr.variables
+    inputs = [jnp.asarray(x) for x in (si, sp, focal, c, rays, tg, anc)]
+
+    def loss_fn(params):
+        vs = {"params": params, "batch_stats": variables["batch_stats"]}
+        cond = jm.encode(vs, *inputs[:3], c=inputs[3],
+                         train=not jm.stop_encoder_grad)
+        if not jm.stop_encoder_grad:
+            cond = cond[0]
+        r = jr(jm, vs, cond, inputs[4].reshape(SB, k * R, 8), sub)
+        losses = jax.vmap(lambda a, b, an: jnp.stack(yl(a, b, an)))(
+            r.reshape(SB * k, R, A, 7), inputs[5].reshape(SB * k, R, A, 6),
+            jnp.broadcast_to(inputs[6][None], (SB, k, A, 2))
+            .reshape(SB * k, A, 2))
+        return jnp.sum(losses[:, 0]), jnp.sum(losses, axis=0) / n_real
+
+    grads = jax.grad(loss_fn, has_aux=True)(variables["params"])[0]
+    grads = jax.tree.map(np.array, grads)
+    train_fn, _ = jtr._build_update()
+    new_vars, jtr.opt_state, loss_dict = train_fn(
+        variables, jtr.opt_state, *inputs, jnp.float32(n_real),
+        jnp.float32(jtr._lr), sub)
+    jtr.variables = new_vars
+    losses = np.array([float(loss_dict[k]) for k in
+                       ("t", "box_loss", "object_loss", "no_object_loss",
+                        "class_loss")])
+    return losses, grads, jax.tree.map(np.array, new_vars), u
