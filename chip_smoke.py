@@ -52,10 +52,22 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      draws, compared (losses, every parameter's gradient); then each
      route's step time (median of 10 after 2 warm-up steps), peak memory
      and stage split (CUDA events: encoder, render, loss, backward,
-     Adam), and the loss falling over 10 steps on one batch.
+     Adam), and the loss falling over 10 steps on one batch;
+  9. NeRF training: the NeRF trainer at bench.py's train_nerf point
+     (config/flagship.py::train_nerf_conf: the flagship NeRF model and
+     renderer, 8,192 rays a step, one source view) on one SRN-format
+     scene of 6 views of 128x128 held in memory (a seeded object on
+     white, bbox sampling on), in bf16 and f32: one step through the
+     kernels (full_pe for the coarse and the fine pass, exactly 2
+     launches, the plain module's backward, gradients reaching the
+     sample points through the depth samples) and one without, from the
+     same weights, pixels and draws, compared; each route's step time,
+     peak memory and stage split; the loss falling over 10 steps; both
+     MLPs' kernel weights fresh after Adam; then one NS=2 step at 2,048
+     rays on each route (pre_combine_pe + post_combine), compared.
 The launch counters (per wrapper and per wrapper and variant) are zeroed
-just before each render path (3, 4, 5, 6) and each dtype's kernel-route
-training step (8) and read just after it; a kernel of a path that never
+just before each render path (3, 4, 5, 6) and each kernel-route training
+step (8, 9) and read just after it; a kernel of a path that never
 launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
@@ -838,9 +850,10 @@ def train_args(tmp):
     return args
 
 
-def train_steps(trainer, batch, n, u=None, stages=False):
-    """n synchronized train steps: (host ms of each, losses of each, the
-    CUDA-event ms of each stage of each step when stages)."""
+def train_steps(trainer, batch, n, stages=False, **step_args):
+    """n synchronized train steps (step_args: the pre-made draws, u= or
+    draws=): (host ms of each, losses of each, the CUDA-event ms of each
+    stage of each step when stages)."""
     import torch
 
     times, losses, split = [], [], []
@@ -848,7 +861,7 @@ def train_steps(trainer, batch, n, u=None, stages=False):
         trainer.stage_events = [] if stages else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = trainer.train_step(batch, u=u)
+        out = trainer.train_step(batch, **step_args)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
@@ -1112,6 +1125,305 @@ def train_one(device, dtype_name, tmp, step_launches, results) -> bool:
     results[dtype_name] = res
     return good
 
+# -- phase 9: NeRF training -----------------------------------------------
+
+# the trainer's operating point (config/flagship.py::train_nerf_conf,
+# bench.py's train_nerf): one SRN-format scene of 6 views of 128x128, one
+# source view a step, 8,192 rays of the scene a step, inside the views'
+# object boxes (bbox sampling); SRN cars' z bounds.  Then one NS=2 step
+# (conf/default_mv.conf's two source views) at 2,048 rays.
+NERF_TRAIN_SIZE, NERF_TRAIN_VIEWS = 128, 6
+NERF_NEAR, NERF_FAR = 0.8, 1.8
+NERF_NS2_RAYS = 2048
+# kernel route vs plain route, the same limits as phase 8 (PERF.md §2):
+# f32 summation order only; bf16 the kernels' roundings, which also move
+# the coarse weights the importance samples follow (a smooth move: the
+# inverse CDF is continuous)
+NERF_TRAIN_TOL = TRAIN_TOL
+
+
+def look_at(origin, target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):
+    """Camera-to-world (OpenGL: the camera looks down its -z) at origin,
+    looking at target."""
+    import numpy as np
+
+    origin, target, up = (np.asarray(v, np.float64)
+                          for v in (origin, target, up))
+    back = origin - target
+    back /= np.linalg.norm(back)
+    right = np.cross(up, back)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = right, np.cross(back, right), back
+    c2w[:3, 3] = origin
+    return c2w.astype(np.float32)
+
+
+def nerf_train_dataset():
+    """One SRN-format scene held in memory (no image files, so neither
+    imageio nor cv2): 6 views of a seeded textured object on a white
+    background, cameras on a ring 1.3 from the origin looking at it, the
+    object's box in each view from ``data.base.mask_bbox``, poses in the
+    SRN dataset's convention (camera-to-world times diag(1, -1, -1, 1))."""
+    import numpy as np
+
+    from pixelnerf_yolo_torch.data.base import (image_to_tensor_balanced,
+                                                mask_bbox)
+
+    S, V = NERF_TRAIN_SIZE, NERF_TRAIN_VIEWS
+    rng = np.random.default_rng(6)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    yy, xx = np.mgrid[0:S, 0:S]
+    images, poses, bboxes = [], [], []
+    for v in range(V):
+        theta = 2 * np.pi * v / V
+        c2w = look_at([1.3 * np.sin(theta), 0.3, 1.3 * np.cos(theta)])
+        poses.append(c2w @ flip)
+        # an ellipse whose centre and size move with the view, filled with
+        # a seeded color field
+        cx, cy = S / 2 + 8 * np.sin(theta), S / 2 + 4 * np.cos(theta)
+        inside = (((xx - cx) / (0.28 * S)) ** 2
+                  + ((yy - cy) / (0.22 * S)) ** 2) <= 1.0
+        img = np.full((S, S, 3), 255, np.uint8)
+        tex = rng.integers(20, 230, size=(S // 8, S // 8, 3))
+        img[inside] = np.kron(tex, np.ones((8, 8, 1)))[inside]
+        images.append(image_to_tensor_balanced(img))
+        bboxes.append(mask_bbox(inside[..., None], "memory"))
+
+    class MemorySRNDataset:
+        z_near, z_far, lindisp = NERF_NEAR, NERF_FAR, False
+        item = {"path": "memory", "img_id": 0, "focal": np.float32(1.2 * S),
+                "c": np.array([S / 2, S / 2], np.float32),
+                "images": np.stack(images), "bbox": np.stack(bboxes),
+                "poses": np.stack(poses).astype(np.float32)}
+
+        def __len__(self):
+            return 1
+
+        def __getitem__(self, index):
+            return self.item
+
+    return MemorySRNDataset()
+
+
+def nerf_train_path(device):
+    """Phase 9, in bf16 and f32 (see nerf_train_one).  Returns (ok,
+    launches of one kernel-route step per path, results)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    ok, step_launches, results = True, {}, {}
+    tmp = tempfile.mkdtemp()
+    try:
+        for dtype_name in ("bfloat16", "float32"):
+            good = nerf_train_one(device, dtype_name, tmp, step_launches,
+                                  results)
+            torch.cuda.empty_cache()
+            if not good:
+                print(f"FAILED: NeRF training in {dtype_name}")
+            ok &= good
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, step_launches, results
+
+
+def nerf_trainer(device, dtype_name, tmp, ns, rays):
+    """make_model / make_renderer / make_trainer at the train_nerf point
+    with ns source views and rays a step; the model's weights from seed 0
+    with fc_1 perturbed and lin_out scaled as the renders' (build_models)."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import train_nerf_conf
+    from pixelnerf_yolo_torch.data import DataLoader
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import make_trainer
+
+    conf = train_nerf_conf(dtype_name)
+    model = make_model(conf.get_config("model"), device=device, seed=0)
+    perturb_fc1(model, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        for mlp in (model.mlp_coarse, model.mlp_fine):
+            mlp.lin_out.weight.mul_(0.05)
+    renderer = make_renderer(conf, device=device)
+    dset = nerf_train_dataset()
+    batch = next(iter(DataLoader(dset, batch_size=1)))
+    args = train_args(os.path.join(tmp, f"{dtype_name}_ns{ns}"))
+    args.nviews, args.ray_batch_size = str(ns), rays
+    trainer = make_trainer(args, conf, dset, dset, model, renderer, [ns],
+                           device=device)
+    draws = renderer.draw(rays, torch.Generator(device=device).manual_seed(5),
+                          device, train=True)
+    return trainer, model, batch, draws
+
+
+def nerf_both_routes(trainer, model, batch, draws, restart):
+    """One step on each route from the same weights, pixels and draws:
+    per route (losses, gradients, launches)."""
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    route = {}
+    for fused in ("auto", "false"):
+        restart()
+        model.use_fused_mlp = fused
+        fm.reset_launches()
+        _, losses, _ = train_steps(trainer, batch, 1, draws=draws)
+        route[fused] = (losses[0], {
+            n: None if p.grad is None else p.grad.detach().clone()
+            for n, p in model.named_parameters()},
+            dict(fm.variant_launches))
+        torch.cuda.synchronize()
+    return route["auto"], route["false"]
+
+
+def nerf_agreement(label, dtype_name, kernel, plain) -> tuple[bool, dict]:
+    """Losses (relative) and every gradient (relative L2), kernel route
+    against plain, to NERF_TRAIN_TOL."""
+    (lk, gk, _), (lp, gp, _) = kernel, plain
+    loss_tol, grad_tol = NERF_TRAIN_TOL[dtype_name]
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    finite = all(math.isfinite(v) for v in lk.values())
+    worst, worst_name, missing = grad_diff(gk, gp)
+    good = (finite and set(lk) == {"rc", "rf", "t"} and loss_err <= loss_tol
+            and worst <= grad_tol and not missing)
+    print(f"  {label}: kernel vs plain route, one step: losses {lk} | plain "
+          f"{lp}; max relative loss diff {loss_err:.3e} (tol {loss_tol}); "
+          f"worst gradient relative L2 {worst:.3e} at {worst_name} (tol "
+          f"{grad_tol}) over {len(gp)} parameters; gradient on one route "
+          f"only: {missing} {'ok' if good else 'FAILED'}", flush=True)
+    return good, {"loss_err": loss_err, "grad_err": worst,
+                  "grad_err_at": worst_name}
+
+
+def nerf_train_one(device, dtype_name, tmp, step_launches, results) -> bool:
+    """Phase 9 in one compute dtype: at the train_nerf point (NS=1, 8,192
+    rays, bbox sampling), one step on the kernel route (full_pe forward
+    for the coarse and the fine pass, the plain module's backward) and one
+    on the plain route from the same weights, pixels and draws, compared,
+    with the launches of the kernel-route step; each route's step time,
+    peak memory and stage split; the loss falling over TRAIN_FIT_STEPS
+    steps on one batch and both MLPs' kernel weights fresh after them.
+    Then one NS=2 step at NERF_NS2_RAYS rays on each route (pre_combine_pe
+    and post_combine), compared."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import TRAIN_NERF_RAYS
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    cdt = getattr(torch, dtype_name)
+    suffix = "" if dtype_name == "bfloat16" else "_f32"
+    trainer, model, batch, draws = nerf_trainer(device, dtype_name, tmp, 1,
+                                                TRAIN_NERF_RAYS)
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    pixel_rng = trainer._rng.bit_generator.state
+
+    def restart():
+        """The initial weights and running statistics, a fresh Adam and
+        the same views and pixels."""
+        model.load_state_dict(init)
+        trainer.init_opt_state(model.parameters())
+        trainer._rng.bit_generator.state = pixel_rng
+
+    kernel, plain = nerf_both_routes(trainer, model, batch, draws, restart)
+    launches = kernel[2]
+    step_launches["train_nerf" + suffix] = launches
+    var = fm.variant("full_pe", cdt)
+    good = (launched(launches, "full_pe", var) == 2
+            and launched(launches, "pre_combine_pe") == 0
+            and launched(launches, "post_combine") == 0
+            and sum(plain[2].values()) == 0)
+    print(f"train NeRF {dtype_name}: launches of one kernel-route step "
+          f"{launches} (full_pe must launch twice, coarse and fine); plain "
+          f"route {plain[2]} {'ok' if good else 'FAILED'}", flush=True)
+    agree, res = nerf_agreement(f"NS=1, {TRAIN_NERF_RAYS} rays", dtype_name,
+                                kernel, plain)
+    good &= agree
+    res["launches"] = launches
+    del kernel, plain
+
+    for fused, label in (("auto", "kernel"), ("false", "plain")):
+        restart()
+        model.use_fused_mlp = fused
+        train_steps(trainer, batch, TRAIN_WARMUP, draws=draws)
+        torch.cuda.reset_peak_memory_stats()
+        times, _, _ = train_steps(trainer, batch, TRAIN_TIMED, draws=draws)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, _, split = train_steps(trainer, batch, TRAIN_STAGE_STEPS,
+                                  stages=True, draws=draws)
+        ms = statistics.median(times)
+        stages = {k: statistics.median([s[k] for s in split])
+                  for k in STAGES}
+        res[label] = {"ms_median": ms, "ms_min": min(times),
+                      "ms_max": max(times), "peak_gib": peak,
+                      "stages_ms": stages}
+        print(f"  {label:6s} route: {ms:.3f} ms/step median of "
+              f"{TRAIN_TIMED} (min {min(times):.3f}, max {max(times):.3f}) "
+              f"after {TRAIN_WARMUP} warm-up steps; peak memory "
+              f"{peak:.2f} GiB; stage split (CUDA events, median of "
+              f"{TRAIN_STAGE_STEPS} steps, ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
+              flush=True)
+    print(f"  kernel / plain route step time "
+          f"{res['kernel']['ms_median'] / res['plain']['ms_median']:.3f}",
+          flush=True)
+
+    restart()
+    model.use_fused_mlp = "auto"
+    fit = []
+    # a step reports the loss before its update: step 11 reads the
+    # loss after 10 updates
+    for _ in range(TRAIN_FIT_STEPS + 1):
+        trainer._rng.bit_generator.state = pixel_rng
+        fit += train_steps(trainer, batch, 1, draws=draws)[1]
+    first, last = fit[0]["t"], fit[-1]["t"]
+    fell = math.isfinite(last) and last < first
+    print(f"  loss on one batch (same pixels and draws) before and after "
+          f"{TRAIN_FIT_STEPS} kernel-route steps: {first:.6f} -> "
+          f"{last:.6f} {'ok' if fell else 'FAILED: the loss did not fall'}",
+          flush=True)
+    good &= fell
+    # both MLPs' cached kernel weights after those Adam steps
+    current = all(
+        torch.equal(getattr(fm.stacked_params(mlp, cdt), k),
+                    getattr(fm.stack_params(mlp, cdt), k))
+        for mlp in (model.mlp_coarse, model.mlp_fine)
+        for k in fm.WEIGHT_NAMES)
+    print(f"  kernel weights of mlp_coarse and mlp_fine after the steps "
+          f"match the parameters: {'ok' if current else 'FAILED: stale'}",
+          flush=True)
+    good &= current
+    res.update(fit_first=first, fit_last=last)
+    del trainer, model, init
+    torch.cuda.empty_cache()
+
+    # NS=2: the pre_combine_pe + view mean + post_combine route
+    trainer, model, batch, draws = nerf_trainer(device, dtype_name, tmp, 2,
+                                                NERF_NS2_RAYS)
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    pixel_rng = trainer._rng.bit_generator.state
+    kernel, plain = nerf_both_routes(trainer, model, batch, draws, restart)
+    launches2 = kernel[2]
+    step_launches["train_nerf_ns2" + suffix] = launches2
+    var = fm.variant("pre_combine_pe", cdt)
+    good2 = (launched(launches2, "pre_combine_pe", var) == 2
+             and launched(launches2, "post_combine", var) == 2
+             and launched(launches2, "full_pe") == 0
+             and sum(plain[2].values()) == 0)
+    print(f"train NeRF NS=2 {dtype_name}: launches of one kernel-route step "
+          f"{launches2}; plain route {plain[2]} "
+          f"{'ok' if good2 else 'FAILED'}", flush=True)
+    agree2, res2 = nerf_agreement(f"NS=2, {NERF_NS2_RAYS} rays", dtype_name,
+                                  kernel, plain)
+    good &= good2 and agree2
+    res2["launches"] = launches2
+    res["ns2"] = res2
+    results[dtype_name] = res
+    return good
+
 
 def main() -> int:
     import torch
@@ -1139,7 +1451,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-8; prints the kernels line; True when every check held."""
+    """Phases 2-9; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -1225,11 +1537,14 @@ def run(device) -> bool:
 
     tok, train_launches, _ = train_path(device)
     ok &= tok
+    nok, nerf_train_launches, _ = nerf_train_path(device)
+    ok &= nok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
              "train_step": train_launches["bfloat16"],
-             "train_step_f32": train_launches["float32"]}
+             "train_step_f32": train_launches["float32"],
+             **nerf_train_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

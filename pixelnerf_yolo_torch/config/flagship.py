@@ -17,6 +17,13 @@ the YOLO renderer with 128 coarse samples and no fine samples.
 256-px sources at image_scale 0.5, one 32-px cell scale) with the ELAN
 backbone, a 5-block 512-wide ResnetFC, 128 coarse samples and chunks of
 ``yolo.ray_batch_size`` 1024 rays.
+
+``train_nerf_conf`` is the NeRF trainer's operating point, ``bench.py``'s
+``train_nerf`` config: the flagship NeRF model and renderer (ResNet34,
+5 x 512 ResnetFC, combine layer 3, 64 + 16 + 16 samples) over the same
+trainer schema, MSE on both passes with lambda coarse = lambda fine = 1;
+the bench trains it on 8,192 rays a step, one scene a batch, one source
+view (``TRAIN_NERF_RAYS``, ``-B 1 -V 1``).
 """
 
 from __future__ import annotations
@@ -138,3 +145,30 @@ yolo {{
 
 def train_yolo_conf(compute_dtype: str = "bfloat16") -> Config:
     return parse_string(_TRAIN_YOLO_CONF.format(compute_dtype=compute_dtype))
+
+
+# the trainer schema of __graft_entry__._DRYRUN_YOLO_CONF with the loss
+# settings bench.py's train_nerf config puts over it
+_TRAIN_NERF_SCHEMA = """
+loss { lambda_coarse = 1.0
+       lambda_fine = 1.0
+       rgb { use_l1 = False }
+       rgb_fine { use_l1 = False } }
+train { print_interval = 2
+        save_interval = 10000
+        backup_interval = 10000
+        vis_interval = 10000
+        eval_interval = 10000
+        metric_interval = 10000
+        accu_grad = 1
+        num_epoch_repeats = 1 }
+"""
+TRAIN_NERF_RAYS = 8192
+
+
+def train_nerf_conf(compute_dtype: str = "bfloat16") -> Config:
+    conf = parse_string(_TRAIN_NERF_SCHEMA)
+    flag = flagship_conf(compute_dtype=compute_dtype)
+    for k in ("model", "renderer"):
+        conf.put(k, flag.get_config(k))
+    return conf

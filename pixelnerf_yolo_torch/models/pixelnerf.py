@@ -24,11 +24,19 @@ plain-module backward), which keep nothing when no gradient is wanted.
 BatchNorm on the batch's statistics and updates the running ones;
 ``stop_encoder_grad`` (``--freeze_enc``) keeps the encoder in eval mode
 and detaches its latent.
+
+``encoder.pretrained = True`` grafts torchvision's ImageNet weights over a
+ResNet encoder's random init (nn/pretrained.py); without the npz it warns
+and keeps the random init, or raises when ``PNY_PRETRAINED_STRICT`` is
+set.  The ELAN backbone has no pretrained source.  ``load_pretrained =
+False`` skips the graft, for a model whose weights a checkpoint is about
+to overwrite.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Optional
 
@@ -91,7 +99,8 @@ class PixelNeRF(nn.Module):
     """
 
     def __init__(self, conf, generator: torch.Generator | None = None,
-                 stop_encoder_grad: bool = False):
+                 stop_encoder_grad: bool = False,
+                 load_pretrained: bool = True):
         super().__init__()
         for key, what in _UNPORTED.items():
             if conf.get_bool(key, False):
@@ -104,8 +113,8 @@ class PixelNeRF(nn.Module):
         self.encoder = make_encoder(conf.get_config("encoder"),
                                     dtype=self.compute_dtype,
                                     generator=generator)
-        if conf.get_bool("encoder.pretrained", True):
-            _no_pretrained_graft(self.encoder.backbone)
+        if load_pretrained and conf.get_bool("encoder.pretrained", True):
+            _maybe_load_pretrained(self.encoder)
         self.stop_encoder_grad = stop_encoder_grad
         self.use_xyz = conf.get_bool("use_xyz", False)
         self.normalize_z = conf.get_bool("normalize_z", True)
@@ -375,17 +384,31 @@ class PixelNeRF(nn.Module):
         return torch.cat([rgb, sigma], dim=-1).reshape(SB, B, -1)
 
 
-def _no_pretrained_graft(backbone: str) -> None:
-    """``encoder.pretrained = True``: the JAX package grafts ported
-    torchvision ImageNet weights over a ResNet's random init
-    (``PixelNeRF._maybe_load_pretrained``) and warns and keeps the random
-    init when the npz is missing, as it is in this repo.  The port has no
-    graft yet (ROADMAP.md Queue 1 item 16): it warns and keeps the random
-    init."""
+def _maybe_load_pretrained(encoder, key: str = "encoder") -> None:
+    """Graft torchvision's ImageNet weights over a ResNet encoder's random
+    init (JAX ``PixelNeRF._maybe_load_pretrained``).  A missing npz warns
+    and keeps the random init, or raises under PNY_PRETRAINED_STRICT; the
+    ELAN backbone is skipped."""
+    from ..nn.pretrained import graft, load_pretrained_backbone
+
+    backbone = encoder.backbone
     if not backbone.startswith("resnet"):
-        print(f"encoder init: random (no pretrained source for backbone "
-              f"{backbone!r})")
+        print(f"{key} init: random (no pretrained source for backbone "
+              f"{backbone!r}; the reference's external yolov7.pt has no "
+              "correspondence to the built-in ELAN backbone)")
         return
-    warnings.warn("encoder.pretrained = True, but the pretrained backbone "
-                  "graft is not ported yet (ROADMAP.md Queue 1 item 16); "
-                  "proceeding with RANDOM encoder init")
+    try:
+        state_dict, path = load_pretrained_backbone(backbone)
+    except FileNotFoundError as e:
+        if os.environ.get("PNY_PRETRAINED_STRICT"):
+            raise
+        warnings.warn(
+            f"{e}\nProceeding with RANDOM encoder init "
+            "(encoder.pretrained=True requested; run "
+            "scripts/port_torchvision.py to ship the npz, or set "
+            "PNY_PRETRAINED_STRICT=1 to make this an error).")
+        print(f"{key} init: random (pretrained weights not found)")
+        return
+    n = graft(encoder.model, state_dict)
+    print(f"{key} init: ported torchvision ImageNet {backbone} from {path} "
+          f"({n} tensors)")

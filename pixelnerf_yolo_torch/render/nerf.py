@@ -10,6 +10,15 @@ Python loop runs coarse + fine for each chunk, as the JAX package's
 draws are made once over the full (padded) batch, so the result does not
 depend on the chunk size.  The fine pass evaluates the union in unsorted
 order so that the coarse samples reuse their latents, then sorts.
+
+``__call__`` renders for inference, under ``torch.no_grad()``; ``render``
+is the same render with autograd, the training render.  With ``train``
+and ``noise_std > 0`` it adds Gaussian noise to sigma before compositing,
+in each pass's composite order (the fine pass's sorted order).  The
+importance samples follow the coarse weights as constants; the depth
+samples keep the gradient of the coarse depth, which reaches the sample
+points through the sort, the latent gather's coordinates and the field's
+positional encoding.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ class NeRFRenderer:
     n_coarse: int = 128
     n_fine: int = 0
     n_fine_depth: int = 0
+    noise_std: float = 0.0
     depth_std: float = 0.01
     eval_batch_size: int = 100000
     white_bkgd: bool = False
@@ -64,6 +74,7 @@ class NeRFRenderer:
             n_coarse=conf.get_int("n_coarse", 128),
             n_fine=conf.get_int("n_fine", 0),
             n_fine_depth=conf.get_int("n_fine_depth", 0),
+            noise_std=conf.get_float("noise_std", 0.0),
             depth_std=conf.get_float("depth_std", 0.01),
             white_bkgd=bool(conf.get_float("white_bkgd", white_bkgd)),
             lindisp=lindisp,
@@ -91,8 +102,10 @@ class NeRFRenderer:
         return -(-n_rays_per_scene // nc)
 
     def draw(self, n_rows: int, generator: torch.Generator | None = None,
-             device=None) -> dict:
-        """The render's random draws for ``n_rows`` (padded) rays."""
+             device=None, train: bool = False) -> dict:
+        """The render's random draws for ``n_rows`` (padded) rays; with
+        train and noise_std > 0 also the standard normals of the coarse
+        (noise_c) and the sorted fine (noise_f) sigma noise."""
         device = device or self.device
         n_imp = self.n_fine - self.n_fine_depth
 
@@ -105,6 +118,10 @@ class NeRFRenderer:
             d["u_jitter"] = rand(n_imp)
         if self.using_fine and self.n_fine_depth > 0:
             d["noise_d"] = rand(self.n_fine_depth, torch.randn)
+        if train and self.noise_std > 0.0:
+            d["noise_c"] = rand(self.n_coarse, torch.randn)
+            if self.using_fine:
+                d["noise_f"] = rand(self.n_coarse + self.n_fine, torch.randn)
         return d
 
     def _eval_model(self, model, cond, rays, z_samp, coarse: bool, sb: int,
@@ -126,20 +143,22 @@ class NeRFRenderer:
         return (out, lat) if return_latent else out
 
     def _composite_pass(self, model, cond, rays, z_samp, coarse, sb,
-                        return_latent: bool = False):
+                        return_latent: bool = False, sigma_noise=None):
         out = self._eval_model(model, cond, rays, z_samp, coarse, sb,
                                return_latent=return_latent)
         latent = None
         if return_latent:
             out, latent = out
-        comp = composite(out, z_samp, rays[:, -1:], white_bkgd=self.white_bkgd)
+        comp = composite(out, z_samp, rays[:, -1:], white_bkgd=self.white_bkgd,
+                         sigma_noise=sigma_noise)
         return (comp + (latent,)) if return_latent else comp
 
     def _fine_pass_reuse(self, model, cond, rays, z_union, k_coarse: int,
-                         latent_c, sb):
+                         latent_c, sb, sigma_noise=None):
         """Fine pass evaluated in unsorted union order, so that the first
         k_coarse samples reuse the coarse pass's latents; the outputs are
-        then put in sorted-z order (stable sort) before compositing."""
+        then put in sorted-z order (stable sort) before compositing.  The
+        sort and the gather pass gradients to both z and the outputs."""
         B, Ku = z_union.shape
         Kn = Ku - k_coarse
         Bp = B // sb
@@ -162,14 +181,21 @@ class NeRFRenderer:
             out.float(), 1, perm[..., None].expand(-1, -1, out.shape[-1])
         )
         return composite(out_sorted, z_sorted, rays[:, -1:],
-                         white_bkgd=self.white_bkgd)
+                         white_bkgd=self.white_bkgd, sigma_noise=sigma_noise)
 
-    def _render_chunk(self, model, cond, rays, draws: dict, sb: int):
+    def _render_chunk(self, model, cond, rays, draws: dict, sb: int,
+                      train: bool):
         """Coarse + fine for one chunk of rays (sb * cb, 8)."""
+        noise_c = noise_f = None
+        if train and self.noise_std > 0.0:
+            noise_c = draws["noise_c"] * self.noise_std
+            if self.using_fine:
+                noise_f = draws["noise_f"] * self.noise_std
         z_c = sample_coarse(rays, self.n_coarse, lindisp=self.lindisp,
                             u=draws["u_coarse"])
         w_c, rgb_c, depth_c, lat = self._composite_pass(
-            model, cond, rays, z_c, True, sb, return_latent=True
+            model, cond, rays, z_c, True, sb, return_latent=True,
+            sigma_noise=noise_c,
         )
         res = {"w_c": w_c, "rgb_c": rgb_c, "depth_c": depth_c}
         if not self.using_fine:
@@ -187,7 +213,7 @@ class NeRFRenderer:
             ))
         res["w_f"], res["rgb_f"], res["depth_f"] = self._fine_pass_reuse(
             model, cond, rays, torch.cat(samps, dim=-1), self.n_coarse, lat,
-            sb,
+            sb, sigma_noise=noise_f,
         )
         return res
 
@@ -196,7 +222,8 @@ class NeRFRenderer:
     @torch.no_grad()
     def __call__(self, model, cond, rays, generator=None, draws=None,
                  want_weights: bool = False) -> dict:
-        """Render a ray batch.
+        """Render a ray batch, for inference (no autograd graph, no sigma
+        noise).
 
         :param rays (SB, B, 8), moved to the renderer's device
         :param generator torch.Generator for the draws (default: torch's)
@@ -205,12 +232,23 @@ class NeRFRenderer:
         :return {"coarse": {"rgb" (SB,B,3), "depth" (SB,B), ["weights"]},
                  ["fine": {...}]}
         """
+        return self.render(model, cond, rays, generator=generator,
+                           draws=draws, want_weights=want_weights,
+                           train=False)
+
+    def render(self, model, cond, rays, generator=None, draws=None,
+               want_weights: bool = False, train: bool = True) -> dict:
+        """``__call__`` with autograd: the training render.  With train and
+        noise_std > 0 the draws hold the sigma noise too (``draw(...,
+        train=True)``)."""
         rays = _tensor(rays, self.device)
         if rays.ndim != 3:
             raise ValueError(f"rays must be (SB, B, 8), got {tuple(rays.shape)}")
-        return self._render(model, cond, rays, generator, draws, want_weights)
+        return self._render(model, cond, rays, generator, draws, want_weights,
+                            train)
 
-    def _render(self, model, cond, rays, generator, draws, want_weights):
+    def _render(self, model, cond, rays, generator, draws, want_weights,
+                train):
         sb, n_rays = rays.shape[:2]
         cb = self._chunk_rays(n_rays, cond.num_views_per_obj,
                               latent_width=cond.latent_flat.shape[-1])
@@ -219,7 +257,7 @@ class NeRFRenderer:
             rays = torch.cat([rays, rays[:, :1].expand(sb, pad, 8)], dim=1)
         Bp = rays.shape[1]
         if draws is None:
-            draws = self.draw(sb * Bp, generator, rays.device)
+            draws = self.draw(sb * Bp, generator, rays.device, train=train)
         draws = {k: _tensor(v, rays.device).reshape(sb, Bp, -1)
                  for k, v in draws.items()}
 
@@ -228,7 +266,7 @@ class NeRFRenderer:
             sl = slice(start, start + cb)
             d = {k: v[:, sl].reshape(sb * cb, -1) for k, v in draws.items()}
             chunks.append(self._render_chunk(
-                model, cond, rays[:, sl].reshape(-1, 8), d, sb
+                model, cond, rays[:, sl].reshape(-1, 8), d, sb, train
             ))
 
         def joined(key):

@@ -1,5 +1,7 @@
 """Training entry point of the port:
 
+    python -m pixelnerf_yolo_torch.train -c conf/exp/srn.conf -D <data> \
+        -F srn -n <name> [-B 4] [-V 1] [--device cuda]
     python -m pixelnerf_yolo_torch.train -c conf/exp/yolo.conf -D <data> \
         -F yolo -n <name> [-B 1] [-V 3] [--device cuda]
 
@@ -7,8 +9,10 @@ Counterpart of the repo's train/train.py with its flags (-B, -V,
 --freeze_enc, --no_bbox_step, --fixed_test, --seed, --host_nms): the
 NaN-abort stop and the early-restart loop (rebuild everything with
 resume=False when the trainer reports "no_vis").  It trains on one
-device, the card unless ``--device cpu`` is given; the YOLO trainer is
-ported, the NeRF trainer is not yet (ROADMAP.md Queue 1 item 16).
+device, the card unless ``--device cpu`` is given: the NeRF trainer for
+the srn, dvr, dvr_gen, dvr_dtu and multi_obj formats (``renderer.type =
+nerf``), the YOLO trainer for yolo.  The ``encoder.pretrained`` graft is
+skipped when a checkpoint will overwrite the weights.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from ..config.args import parse_args
 from ..data import get_split_dataset
 from ..models import make_model
 from ..render import make_renderer
-from . import make_trainer
+from . import checkpoints, make_trainer
 
 
 def extra_args(parser):
@@ -60,7 +64,8 @@ def build_and_train(args, conf, resume):
     print("dset z_near {}, z_far {}, lindisp {}".format(
         dset.z_near, dset.z_far, getattr(dset, "lindisp", False)))
     model = make_model(conf.get_config("model"), device=args.device,
-                       seed=args.seed, stop_encoder_grad=bool(args.freeze_enc))
+                       seed=args.seed, stop_encoder_grad=bool(args.freeze_enc),
+                       load_pretrained=not checkpoints.has_weights(args))
     if args.freeze_enc:
         print("Encoder frozen")
     renderer = make_renderer(conf, lindisp=getattr(dset, "lindisp", False),

@@ -43,6 +43,7 @@ from ..detect.nms import tp_fp_fn_padded
 from ..losses.yolo import YoloLoss
 from ..utils import camera
 from . import checkpoints
+from .nerf_trainer import PixelNeRFTrainer
 from .trainer import Trainer
 
 LOSS_KEYS = ("t", "box_loss", "object_loss", "no_object_loss", "class_loss")
@@ -370,6 +371,6 @@ def make_trainer(args, conf, dset, val_dset, model, renderer, nviews,
         return YOLOTrainer(args, conf, dset, val_dset, model, renderer,
                            nviews, device=device)
     if trainer_type == "nerf":
-        raise NotImplementedError(
-            "the NeRF trainer is not ported yet (ROADMAP.md Queue 1 item 16)")
+        return PixelNeRFTrainer(args, conf, dset, val_dset, model, renderer,
+                                nviews, device=device)
     raise NotImplementedError("Unsupported trainer type")

@@ -1,7 +1,7 @@
 """Camera ray generation.
 
 Counterpart of ``gen_rays``, ``unproj_map``, ``_expand_focal``,
-``gen_rays_yolo`` and ``gen_rays_yolo_np`` in
+``gen_rays_yolo``, ``gen_rays_np`` and ``gen_rays_yolo_np`` in
 pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
 OpenGL-style camera (x right, y up, z backward) and camera-to-world poses.
 YOLO mode: world-to-camera extrinsics and a pinhole K (z forward).
@@ -100,6 +100,44 @@ def gen_rays_yolo(poses, width: int, height: int, focal, c, z_near,
     fars = torch.full((n, height, width, 1), float(z_far), dtype=f32,
                       device=device)
     return torch.cat([origins, dirs, nears, fars], dim=-1)
+
+
+def gen_rays_np(poses, width: int, height: int, focal, z_near, z_far,
+                c=None) -> np.ndarray:
+    """``gen_rays`` on the host in numpy (the NeRF trainer's batch
+    assembly), with the JAX package's numpy arithmetic; no NDC.
+
+    :param poses (B, 4, 4) camera-to-world
+    :return (B, H, W, 8) float32
+    """
+    poses = np.asarray(poses, dtype=np.float32)
+    f = np.asarray(focal, dtype=np.float32).squeeze()
+    if f.ndim == 0:
+        f = np.stack([f, f])
+    elif f.shape[-1] == 1:
+        f = np.concatenate([f, f], axis=-1)
+    if c is None:
+        cc = np.asarray([width * 0.5, height * 0.5], dtype=np.float32)
+    else:
+        cc = np.asarray(c, dtype=np.float32).squeeze()
+        if cc.ndim == 0:
+            cc = np.stack([cc, cc])
+    x = (np.arange(width, dtype=np.float32) - cc[0]) / f[0]
+    y = (np.arange(height, dtype=np.float32) - cc[1]) / f[1]
+    X, Y = np.meshgrid(x, y, indexing="xy")
+    unproj = np.stack([X, -Y, -np.ones_like(X)], axis=-1)
+    dirs_cam = unproj / np.linalg.norm(unproj, axis=-1, keepdims=True)
+
+    B = poses.shape[0]
+    centers = np.broadcast_to(
+        poses[:, None, None, :3, 3], (B, height, width, 3)
+    )
+    raydirs = np.einsum("bij,hwj->bhwi", poses[:, :3, :3], dirs_cam)
+    nears = np.full((B, height, width, 1), z_near, dtype=np.float32)
+    fars = np.full((B, height, width, 1), z_far, dtype=np.float32)
+    return np.concatenate(
+        [centers, raydirs.astype(np.float32), nears, fars], axis=-1
+    )
 
 
 def gen_rays_yolo_np(poses, width: int, height: int, focal, c, z_near,

@@ -243,13 +243,30 @@ def test_vis_and_metric_steps(trainer_setup):
     assert tr.metric_step(val_loader) == (p, r, f1)
 
 
-def test_make_trainer_raises_for_nerf(trainer_setup):
+def test_make_trainer_raises_for_nerf(tmp_path):
+    """``renderer.type = nerf``: make_trainer returns the NeRF trainer (it
+    raised before the NeRF trainer was ported, hence the name); another
+    type still raises."""
     from pixelnerf_yolo_torch.config.hocon import parse_string
-    from pixelnerf_yolo_torch.train import make_trainer
+    from pixelnerf_yolo_torch.data import get_split_dataset
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import PixelNeRFTrainer, make_trainer
+    from synth_data import make_srn_dataset
+    from torch_parity import nerf_datasets, nerf_train_conf, train_args
 
-    conf = parse_string("renderer { type = nerf }")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_trainer(None, conf, None, None, None, None, [1], device="cpu")
+    root = str(tmp_path / "cars")
+    for stage in ("train", "val", "test"):
+        make_srn_dataset(root, stage=stage, n_objs=1, n_views=2, img_size=32)
+    conf = nerf_train_conf(parse_string, "auto")
+    dset, val = nerf_datasets(get_split_dataset, root)
+    model = make_model(conf.get_config("model"), device="cpu")
+    tr = make_trainer(train_args(tmp_path, "nerf"), conf, dset, val, model,
+                      make_renderer(conf, device="cpu"), [1], device="cpu")
+    assert isinstance(tr, PixelNeRFTrainer) and tr.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="Unsupported trainer"):
+        make_trainer(None, parse_string("renderer { type = gan }"), None,
+                     None, None, None, [1], device="cpu")
 
 
 def test_count_parameters_matches_jax():

@@ -120,19 +120,20 @@ def test_batch_norm_variance_is_biased():
                                0.1 * x.mean(dim=(0, 2, 3)), rtol=0, atol=1e-6)
 
 
-def test_pretrained_without_graft_warns():
-    """``encoder.pretrained = True``: the JAX package grafts ImageNet
-    weights over a ResNet and warns and keeps the random init when its npz
-    is missing (it is, in this repo); the port, which has no graft yet,
-    warns the same way and keeps the random init.  The ELAN backbone has
-    no pretrained source: no warning."""
+def test_pretrained_without_graft_warns(tmp_path, monkeypatch):
+    """``encoder.pretrained = True`` without the ImageNet npz (it is not
+    in this repo; the search starts at an empty PNY_PRETRAINED_DIR): the
+    port, as the JAX package, warns and keeps the random init.  The ELAN
+    backbone has no pretrained source: no warning."""
     import warnings
 
     from pixelnerf_yolo_torch.models import make_model
 
+    monkeypatch.setenv("PNY_PRETRAINED_DIR", str(tmp_path))
+    monkeypatch.delenv("PNY_PRETRAINED_STRICT", raising=False)
     conf = small_flagship().get_config("model")
     conf.put("encoder.pretrained", True)
-    with pytest.warns(UserWarning, match="item 16"):
+    with pytest.warns(UserWarning, match="RANDOM encoder init"):
         a = make_model(conf, device="cpu")
     b = make_model(small_flagship().get_config("model"), device="cpu")
     for k, t in a.state_dict().items():

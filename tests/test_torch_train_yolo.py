@@ -16,7 +16,8 @@ import torch
 
 from pixelnerf_yolo_torch.convert import from_jax_variables
 from synth_data import make_yolo_dataset
-from torch_parity import jax_yolo_trainer, jax_yolo_update, port_yolo_trainer
+from torch_parity import (jax_yolo_trainer, jax_yolo_update,
+                          param_update_close, port_yolo_trainer)
 
 LR = 1e-4
 LOSS_RTOL = 1e-5  # each reported loss, relative
@@ -39,15 +40,7 @@ def data(tmp_path_factory):
 
 
 def _param_update_close(name, got, ref_new, ref_grad, old):
-    """Adam's first step moves each parameter by about -lr * sign(g): where
-    |g_jax| > 1e-3 max|g| the port's new value is within 1e-3 lr of JAX's;
-    elsewhere (a gradient near 0 can take either sign) within 2 lr."""
-    g = np.abs(ref_grad)
-    big = g > 1e-3 * g.max()
-    diff = np.abs(got - ref_new)
-    assert diff[big].max(initial=0) <= 1e-3 * LR, name
-    assert diff.max() <= 2 * LR * (1 + 1e-3), name
-    assert np.abs(ref_new - old).max() > 0.5 * LR, name  # it moved
+    param_update_close(name, got, ref_new, ref_grad, old, LR)
 
 
 @pytest.mark.parametrize("fused", ["true", "false"])

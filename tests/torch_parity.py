@@ -4,6 +4,8 @@ through pixelnerf_yolo_torch on the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 import jax
@@ -120,13 +122,17 @@ def port_model(conf, variables):
     return model
 
 
-def jax_draws(renderer, key, n_rows):
+def jax_draws(renderer, key, n_rows, train=False):
     """The render's draws as the JAX NeRFRenderer makes them
-    (render/nerf.py: split(rng, 5); u from k_fine, then split(k_fine))."""
-    k_coarse, k_fine, k_fdepth, _, _ = jax.random.split(key, 5)
+    (render/nerf.py: split(rng, 5); u from k_fine, then split(k_fine));
+    with train and noise_std > 0 also the standard normals of the sigma
+    noise, from k_noise_c over the coarse samples and from k_noise_f over
+    the fine pass's sorted union (the port scales them by noise_std)."""
+    k_coarse, k_fine, k_fdepth, k_noise_c, k_noise_f = jax.random.split(
+        key, 5)
     n_imp = renderer.n_fine - renderer.n_fine_depth
     k2, _ = jax.random.split(k_fine)
-    return {
+    draws = {
         "u_coarse": np.array(
             jax.random.uniform(k_coarse, (n_rows, renderer.n_coarse))),
         "u": np.array(jax.random.uniform(k_fine, (n_rows, n_imp))),
@@ -134,6 +140,12 @@ def jax_draws(renderer, key, n_rows):
         "noise_d": np.array(
             jax.random.normal(k_fdepth, (n_rows, renderer.n_fine_depth))),
     }
+    if train and renderer.noise_std > 0:
+        draws["noise_c"] = np.array(
+            jax.random.normal(k_noise_c, (n_rows, renderer.n_coarse)))
+        draws["noise_f"] = np.array(jax.random.normal(
+            k_noise_f, (n_rows, renderer.n_coarse + renderer.n_fine)))
+    return draws
 
 
 def to_np(x):
@@ -224,6 +236,18 @@ def port_yolo_trainer(root, tmp_path, variables, use_fused_mlp,
                         [3], device="cpu")
 
 
+def param_update_close(name, got, ref_new, ref_grad, old, lr):
+    """Adam's first step moves each parameter by about -lr * sign(g): where
+    |g_jax| > 1e-3 max|g| the port's new value is within 1e-3 lr of JAX's;
+    elsewhere (a gradient near 0 can take either sign) within 2 lr."""
+    g = np.abs(ref_grad)
+    big = g > 1e-3 * g.max()
+    diff = np.abs(got - ref_new)
+    assert diff[big].max(initial=0) <= 1e-3 * lr, name
+    assert diff.max() <= 2 * lr * (1 + 1e-3), name
+    assert np.abs(ref_new - old).max() > 0.5 * lr, name  # it moved
+
+
 def jax_yolo_update(jtr, batch):
     """One update of the JAX trainer's own jitted ``_build_update()`` on
     batch, with the view choice of its ``_rng`` and the coarse draws of the
@@ -263,3 +287,189 @@ def jax_yolo_update(jtr, batch):
                        ("t", "box_loss", "object_loss", "no_object_loss",
                         "class_loss")])
     return losses, grads, jax.tree.map(np.array, new_vars), u
+
+
+# -- NeRF training ---------------------------------------------------------
+
+NERF_TRAIN_SCHEMA = """
+loss { lambda_coarse = 1.0
+       lambda_fine = 1.0
+       rgb { use_l1 = False }
+       rgb_fine { use_l1 = False } }
+train { print_interval = 2
+        save_interval = 10000
+        backup_interval = 10000
+        vis_interval = 10000
+        eval_interval = 10000
+        metric_interval = 10000
+        accu_grad = 1
+        num_epoch_repeats = 1 }
+"""
+NERF_TRAIN_SIZE = 32  # SRN views are read at this size
+
+
+def nerf_train_conf(parse, use_fused_mlp, noise_std=0.0,
+                    compute_dtype="float32"):
+    """bench.py's train_nerf conf at test size through ``parse`` (either
+    package's hocon): the small flagship (resnet18 with 2 layers, d_hidden
+    64, 64 + 16 + 16 samples) over the dry-run trainer schema, MSE on both
+    passes with lambda 1 and 1."""
+    flag = small_flagship(compute_dtype=compute_dtype,
+                          use_fused_mlp=use_fused_mlp)
+    conf = parse(NERF_TRAIN_SCHEMA)
+    for k in ("model", "renderer"):
+        conf.put(k, flag.get_config(k).to_dict())
+    conf.put("renderer.noise_std", noise_std)
+    return conf
+
+
+def nerf_datasets(get_split_dataset, root):
+    """(train, val) SRN datasets at root, read at NERF_TRAIN_SIZE."""
+    size = (NERF_TRAIN_SIZE, NERF_TRAIN_SIZE)
+    return get_split_dataset("srn", root, image_size=size)[:2]
+
+
+def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
+                     **extra):
+    """A JAX PixelNeRFTrainer on the SRN dataset at root with perturbed
+    weights (every MLP weight and the encoder's BatchNorm moved off its
+    init); ns source views a step."""
+    from pixelnerf_yolo_tpu.config.hocon import parse_string
+    from pixelnerf_yolo_tpu.data import get_split_dataset
+    from pixelnerf_yolo_tpu.models import make_model
+    from pixelnerf_yolo_tpu.parallel import bind_parallel
+    from pixelnerf_yolo_tpu.render import make_renderer
+    from pixelnerf_yolo_tpu.train import make_trainer
+
+    conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std)
+    dset, val_dset = nerf_datasets(get_split_dataset, root)
+    jm = make_model(conf.get_config("model"))
+    jr = make_renderer(conf)
+    args = train_args(tmp_path, "jax", nviews=str(ns), **extra)
+    jtr = make_trainer(args, conf, dset, val_dset, jm, jr,
+                       bind_parallel(jr, jm, gpus=[0]), [ns])
+    v = perturbed_variables(
+        jm, np.zeros((ns, 3, NERF_TRAIN_SIZE, NERF_TRAIN_SIZE), np.float32),
+        encoder_stats=True)
+    jtr.variables = jax.tree.map(jnp.asarray, v)
+    jtr.init_opt_state(jtr.variables["params"])
+    return jtr, v
+
+
+def port_nerf_trainer(root, tmp_path, variables, use_fused_mlp, ns,
+                      noise_std=0.0, **extra):
+    """The port's PixelNeRFTrainer on the CPU with the JAX variables'
+    weights."""
+    from pixelnerf_yolo_torch.config.hocon import parse_string
+    from pixelnerf_yolo_torch.convert import from_jax_variables
+    from pixelnerf_yolo_torch.data import get_split_dataset
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import make_trainer
+
+    conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std)
+    dset, val_dset = nerf_datasets(get_split_dataset, root)
+    model = make_model(conf.get_config("model"), device="cpu")
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    return make_trainer(train_args(tmp_path, "port", nviews=str(ns), **extra),
+                        conf, dset, val_dset, model,
+                        make_renderer(conf, device="cpu"), [ns],
+                        device="cpu")
+
+
+def jax_nerf_inputs(jtr, batch, is_train=True, global_step=0):
+    """The JAX trainer's assembled batch (its ``_rng`` advances as its
+    calc_losses would) and the render's draws from the first key its
+    calc_losses would split off: (jnp inputs of its update, draws)."""
+    (si, sp, focal, c, rays, rgb_gt, w, _) = jtr._assemble(
+        batch, is_train, global_step)
+    _, sub = jax.random.split(jax.random.PRNGKey(2))  # seed + 2
+    SB, R = rays.shape[:2]
+    draws = jax_draws(jtr.renderer, sub, SB * R, train=is_train)
+    inputs = [jnp.asarray(x) if x is not None else None
+              for x in (si, sp, focal, c, rays, rgb_gt, w)]
+    return inputs, draws, sub
+
+
+def jax_nerf_update(jtr, batch, global_step=0):
+    """One update of the JAX trainer's own jitted ``_build_update()`` on
+    batch.  Returns (losses {"rc", "rf", "t"}, parameter gradients from
+    the same loss assembly under ``jax.grad``, updated variables, draws)."""
+    from pixelnerf_yolo_tpu.losses.rgb import weighted_rgb_loss
+
+    jm, jr = jtr.model, jtr.renderer
+    inputs, draws, sub = jax_nerf_inputs(jtr, batch, True, global_step)
+    si, sp, focal, c, rays, rgb_gt, w = inputs
+    variables = jtr.variables
+
+    def loss_fn(params):
+        vs = {"params": params, "batch_stats": variables["batch_stats"]}
+        cond = jm.encode(vs, si, sp, focal, c=c,
+                         train=not jm.stop_encoder_grad)
+        if not jm.stop_encoder_grad:
+            cond = cond[0]
+        out = jr(jm, vs, cond, rays, sub, want_weights=False, train=True)
+        rc = weighted_rgb_loss(jtr.rgb_coarse_crit, out["coarse"]["rgb"],
+                               rgb_gt, w)
+        rf = weighted_rgb_loss(jtr.rgb_fine_crit, out["fine"]["rgb"],
+                               rgb_gt, w)
+        return rc * jtr.lambda_coarse + rf * jtr.lambda_fine
+
+    grads = jax.tree.map(np.array, jax.grad(loss_fn)(variables["params"]))
+    train_fn, _ = jtr._build_update()
+    new_vars, jtr.opt_state, loss_dict = train_fn(
+        variables, jtr.opt_state, *inputs, jnp.float32(jtr._lr), sub)
+    jtr.variables = new_vars
+    losses = {k: float(v) for k, v in loss_dict.items()}
+    return losses, grads, jax.tree.map(np.array, new_vars), draws
+
+
+# The ReLU's derivative where its input is within KINK of 0, in both
+# packages, for the NeRF training comparisons (``ramp_relu_grad``).
+KINK = 1e-3
+
+
+def ramp_relu_grad(monkeypatch):
+    """Both packages' ResnetFC ReLU with its forward unchanged and its
+    derivative a ramp, clip(0.5 + x / (2 KINK), 0, 1), instead of a step
+    at 0.
+
+    The field's pre-activations differ between the packages by f32
+    rounding, ~1e-6 to 1e-5 after the positional encoding (frequencies up
+    to 48) scales the sample points' rounding.  Where one lies that close
+    to 0, the step puts it on either side in either package and moves
+    that row's whole contribution to one unit's gradient (4e-4 x max|g| in
+    one tensor of a NeRF update).  Under the ramp the gradient is
+    continuous in the inputs, so the rounding moves it by as little as it
+    moves the forward, while every other entry keeps the ReLU's own
+    derivative."""
+    import pixelnerf_yolo_tpu.nn.resnetfc as jax_resnetfc
+    import pixelnerf_yolo_torch.nn.resnetfc as port_resnetfc
+
+    @jax.custom_jvp
+    def jax_relu(x):
+        return jax.nn.relu(x)
+
+    @jax_relu.defjvp
+    def _jvp(primals, tangents):
+        (x,), (t,) = primals, tangents
+        ramp = jnp.clip(0.5 + x / (2 * KINK), 0.0, 1.0).astype(t.dtype)
+        return jax.nn.relu(x), t * ramp
+
+    class PortReLU(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return torch.relu(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensors
+            return g * torch.clamp(0.5 + x / (2 * KINK), 0.0, 1.0).to(g.dtype)
+
+    jax_act, port_act = jax_resnetfc._activation, port_resnetfc.activation
+    monkeypatch.setattr(jax_resnetfc, "_activation",
+                        lambda beta: jax_act(beta) if beta > 0 else jax_relu)
+    monkeypatch.setattr(port_resnetfc, "activation",
+                        lambda beta: port_act(beta) if beta > 0
+                        else PortReLU.apply)
