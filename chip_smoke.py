@@ -64,11 +64,40 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      same weights, pixels and draws, compared; each route's step time,
      peak memory and stage split; the loss falling over 10 steps; both
      MLPs' kernel weights fresh after Adam; then one NS=2 step at 2,048
-     rays on each route (pre_combine_pe + post_combine), compared.
+     rays on each route (pre_combine_pe + post_combine), compared;
+ 10. the 3-scale YOLO recipe (conf/exp/yolo_3scale.conf at the train_yolo
+     point, config/flagship.py::train_yolo_3scale_conf: cells of 32, 16
+     and 8 px, its anchors, cross-scale suppression, max aggregation,
+     model.remat), on phase 8's scene, 3 chunks of 1,024 rays a step:
+     (a) in bf16 and f32, on the kernel route and the plain route, one
+     step with remat and one without from the same weights, views and
+     draws, compared (losses, every gradient; bf16 with phase 8's
+     ignored-cells rule), with each step's launches (remat launches each
+     kernel twice as often: the replay), ms/step and peak memory, and the
+     kernels' cached weights fresh after the remat steps; (b) at phase
+     9's train_nerf point in f32 on the plain route, each remat_policy
+     (full, block, dots) and remat_gather against no remat, with peak
+     memory and time, then an f32 and a bf16 kernel-route remat step
+     whose full_pe launches are 2 passes x the remat budget's chunks x 2,
+     the bf16 one beside witnesses that take the replay and the chunking
+     apart; (c) the recipe's metric protocol over phase 5's 384x384 scene
+     (grids 12, 24 and 48 cells, 3,024 rays a view) on both routes, at an
+     nms_threshold that about 150 of the random weights' boxes exceed and
+     with the plain route's most confident boxes added to the ground
+     truth: metric_and_map_step with the device NMS (eval_yolo's
+     default), its TP/FP/FN of each view and the boxes it keeps compared
+     between the routes; in f32 also calibrate_scales at [nms_threshold],
+     which must equal metric_step with host matching, and the routes'
+     P/R/F1, TP/FP/FN and mAP identical, TP above 0;
+ 11. NeRF evaluation: eval.evaluate (PSNR, SSIM) and gen_video's render
+     loop on the flagship NeRF model over phase 9's scene at NS=1
+     (full_pe) and NS=2 (pre_combine_pe + post_combine), bf16 and f32,
+     kernel route against plain route (f32: PSNR within 1e-4 dB, SSIM
+     within 1e-6).
 The launch counters (per wrapper and per wrapper and variant) are zeroed
 just before each render path (3, 4, 5, 6) and each kernel-route training
-step (8, 9) and read just after it; a kernel of a path that never
-launched fails it.
+step (8, 9, 10) or evaluation (10, 11) and read just after it; a kernel
+of a path that never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -798,32 +827,35 @@ TRAIN_WARMUP, TRAIN_TIMED, TRAIN_STAGE_STEPS, TRAIN_FIT_STEPS = 2, 10, 3, 10
 STAGES = ("encoder", "render", "loss", "backward", "adam")
 
 
-def train_dataset(conf):
-    """One scene held in memory: seeded images, the extrinsics of
-    ``yolo_scene`` (its 3 source views and the target camera) and grid
-    targets from the port's ``YOLODataset._get_all_bboxes``.  No image
-    files, so neither imageio nor cv2 is needed."""
+def train_dataset(conf, size=TRAIN_SIZE, extra=None):
+    """One scene held in memory: seeded size x size images, the extrinsics
+    of ``yolo_scene`` (its 3 source views and the target camera) and grid
+    targets at each of the conf's scales from the port's
+    ``YOLODataset._get_all_bboxes``, of TRAIN_BOXES and of the
+    [x, y, w, h, class] boxes that extra ({view: boxes}, optional) adds to
+    a view.  No image files, so neither imageio nor cv2 is needed."""
     import numpy as np
 
     from pixelnerf_yolo_torch.data.yolo import YOLODataset
 
-    _, poses, focal, c, target = yolo_scene(TRAIN_NS, TRAIN_SIZE)
+    _, poses, focal, c, target = yolo_scene(TRAIN_NS, size)
 
     class MemoryYOLODataset(YOLODataset):
         def __init__(self):
             self.set_target_conf(conf)
             self.z_near, self.z_far, self.lindisp = YOLO_NEAR, YOLO_FAR, False
             rng = np.random.default_rng(4)
-            images = rng.normal(size=(TRAIN_VIEWS, 3, TRAIN_SIZE,
-                                      TRAIN_SIZE)).astype(np.float32)
+            images = rng.normal(size=(TRAIN_VIEWS, 3, size,
+                                      size)).astype(np.float32)
             shift = np.array([0.05, 0.03, 0, 0, 0])
             self.item = {
                 "path": "memory", "img_id": 0, "focal": focal[0],
                 "c": c[0], "images": images.clip(-1, 1),
                 "poses": np.concatenate([poses[0], target]),
                 "bboxes": [self._get_all_bboxes(
-                    (np.array(TRAIN_BOXES) + v * shift).tolist(),
-                    TRAIN_SIZE, TRAIN_SIZE) for v in range(TRAIN_VIEWS)],
+                    (np.array(TRAIN_BOXES) + v * shift).tolist()
+                    + (extra or {}).get(v, []),
+                    size, size) for v in range(TRAIN_VIEWS)],
             }
 
         def __len__(self):
@@ -1229,10 +1261,11 @@ def nerf_train_path(device):
     return ok, step_launches, results
 
 
-def nerf_trainer(device, dtype_name, tmp, ns, rays):
+def nerf_trainer(device, dtype_name, tmp, ns, rays, puts=None):
     """make_model / make_renderer / make_trainer at the train_nerf point
-    with ns source views and rays a step; the model's weights from seed 0
-    with fc_1 perturbed and lin_out scaled as the renders' (build_models)."""
+    with ns source views and rays a step (and the conf keys of puts set);
+    the model's weights from seed 0 with fc_1 perturbed and lin_out scaled
+    as the renders' (build_models)."""
     import torch
 
     from pixelnerf_yolo_torch.config.flagship import train_nerf_conf
@@ -1242,6 +1275,8 @@ def nerf_trainer(device, dtype_name, tmp, ns, rays):
     from pixelnerf_yolo_torch.train import make_trainer
 
     conf = train_nerf_conf(dtype_name)
+    for key, value in (puts or {}).items():
+        conf.put(key, value)
     model = make_model(conf.get_config("model"), device=device, seed=0)
     perturb_fc1(model, torch.Generator().manual_seed(2))
     with torch.no_grad():
@@ -1425,6 +1460,683 @@ def nerf_train_one(device, dtype_name, tmp, step_launches, results) -> bool:
     return good
 
 
+# -- phase 10: the 3-scale YOLO recipe ------------------------------------
+
+# conf/exp/yolo_3scale.conf at the train_yolo point
+# (config/flagship.py::train_yolo_3scale_conf): cells of 32, 16 and 8 px,
+# so phase 8's 128x128 views have 4x4, 8x8 and 16x16 grids; each scale's
+# rays (48, 192, 768 of the 3 views) padded to a chunk of 1,024, 3 chunks
+# a step.  Remat against no remat on one route: the same forward (the
+# replay runs the same kernels on the same inputs), so losses to 1e-6
+# relative; gradients in relative L2, f32 1e-5 (the gather's atomics),
+# bf16 5e-2 with phase 8's ignored-cells rule (MAX_MOVED): where remat's
+# budget splits the rays into more chunks, the chunks' bf16 latent
+# gradients are summed in bf16 (1.7e-2 at the train_nerf point on the
+# H100)
+REMAT_TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-6, 5e-2)}
+MS_TIMED = 2
+# (remat_policy, remat_gather) at phase 9's train_nerf point, f32, plain
+POLICIES = [("full", False), ("block", False), ("dots", False),
+            ("", True)]
+# evaluation: phase 5's scene (3 sources and the target camera, 384x384)
+# as one 4-view item; the metric protocol's views [0, 2, 3], each a
+# destination on grids of 12x12, 24x24 and 48x48 cells (3,024 rays)
+MS_EVAL_SIZE = 384
+# the evaluation's ground truth gains each destination's most confident
+# plain-route boxes, so that TP is not 0 under random weights; the boxes
+# the routes' f32 device NMS keeps agree to EVAL_BOX_TOL (relative to
+# max(1, |value|))
+EVAL_GT_ADDED, EVAL_BOX_TOL = 4, 1e-4
+# NeRF evaluation (phase 11): phase 9's scene; eval's default ray batch;
+# the orbit's frames; kernel against plain route, f32: PSNR in dB, SSIM
+EVAL_RAYS, VIDEO_FRAMES = 50000, 3
+EVAL_TOL = {"psnr": 1e-4, "ssim": 1e-6}
+
+
+def multiscale_path(device):
+    """Phase 10: (a) the recipe's training step with and without remat on
+    each route in bf16 and f32; (b) the remat policies at the train_nerf
+    point, and a kernel-route remat step there; (c) the evaluation of the
+    recipe (metric_and_map_step, calibrate_scales, metric_step).  Returns
+    (ok, launches by path, results)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    ok, launches, results = True, {}, {}
+    tmp = tempfile.mkdtemp()
+    try:
+        for dtype_name in ("bfloat16", "float32"):
+            good = multiscale_train_one(device, dtype_name, tmp, launches,
+                                        results)
+            torch.cuda.empty_cache()
+            if not good:
+                print(f"FAILED: 3-scale training in {dtype_name}")
+            ok &= good
+        good = remat_policies(device, tmp, launches, results)
+        torch.cuda.empty_cache()
+        if not good:
+            print("FAILED: remat at the train_nerf point")
+        ok &= good
+        for dtype_name in ("bfloat16", "float32"):
+            good = multiscale_eval(device, dtype_name, tmp, launches,
+                                   results)
+            torch.cuda.empty_cache()
+            if not good:
+                print(f"FAILED: 3-scale evaluation in {dtype_name}")
+            ok &= good
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, launches, results
+
+
+def multiscale_trainer(device, conf, tmp, size=TRAIN_SIZE):
+    """make_model / make_renderer / make_trainer on the conf over
+    train_dataset at size; weights from seed 0 with fc_1 perturbed."""
+    import torch
+
+    from pixelnerf_yolo_torch.data import DataLoader
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import make_trainer
+
+    model = make_model(conf.get_config("model"), device=device, seed=0)
+    perturb_fc1(model, torch.Generator().manual_seed(2))
+    renderer = make_renderer(conf, device=device)
+    dset = train_dataset(conf, size)
+    batch = next(iter(DataLoader(dset, batch_size=1)))
+    trainer = make_trainer(train_args(tmp), conf, dset, dset, model,
+                           renderer, [TRAIN_NS], device=device)
+    return trainer, model, renderer, batch
+
+
+def multiscale_train_one(device, dtype_name, tmp, launches, results) -> bool:
+    """Phase 10 (a) in one dtype: from the same weights, views and draws,
+    one step with remat and one without on the kernel route and on the
+    plain route; remat against no remat on each route; the launches of
+    each kernel-route step (remat replays the forward, kernels included);
+    then MS_TIMED timed steps of each (ms/step, peak memory); the kernels'
+    cached weights fresh after the remat steps' Adam updates."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import train_yolo_3scale_conf
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    conf = train_yolo_3scale_conf(dtype_name)
+    trainer, model, renderer, batch = multiscale_trainer(
+        device, conf, os.path.join(tmp, "ms_" + dtype_name))
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    view_rng = trainer._rng.bit_generator.state
+    assembled = trainer._assemble(batch)
+    trainer._rng.bit_generator.state = view_rng
+    A = renderer.num_anchors_per_scale
+    real = assembled[5][..., 0].reshape(-1, A) != -1
+    n_chunks, chunk = assembled[4].shape[1:3]
+    u = torch.rand((n_chunks * chunk, renderer.n_coarse),
+                   device=device,
+                   generator=torch.Generator(device=device).manual_seed(5))
+
+    def step(fused, remat, timed=0):
+        """One step from the initial state (losses, gradients, launches,
+        each cell's argmax sample), and with timed, that many more steps'
+        (ms, peak GiB)."""
+        model.load_state_dict(init)
+        trainer.init_opt_state(model.parameters())
+        trainer._rng.bit_generator.state = view_rng
+        model.use_fused_mlp, model.remat = fused, remat
+        fm.reset_launches()
+        record = []
+        with sample_argmax(record):
+            _, losses, _ = train_steps(trainer, batch, 1, u=u)
+        out = (losses[0], {n: None if p.grad is None
+                           else p.grad.detach().clone()
+                           for n, p in model.named_parameters()},
+               dict(fm.variant_launches),
+               torch.cat(record)[:len(real)].cpu().numpy())
+        if not timed:
+            return out
+        torch.cuda.reset_peak_memory_stats()
+        times, _, _ = train_steps(trainer, batch, timed, u=u)
+        return out, (statistics.median(times),
+                     torch.cuda.max_memory_allocated() / 2**30)
+
+    loss_tol, grad_tol = REMAT_TOL[dtype_name]
+    good, res = True, {"chunks": n_chunks, "real_cells": int(real.sum())}
+    for fused, label in (("auto", "kernel"), ("false", "plain")):
+        (ln, gn, kn, an), (ms_n, peak_n) = step(fused, False, MS_TIMED)
+        (lr, gr, kr, ar), (ms_r, peak_r) = step(fused, True, MS_TIMED)
+        if fused == "auto":
+            # the remat steps' Adam updates: the cache keyed on the
+            # parameters' versions holds the new values
+            cdt = getattr(torch, dtype_name)
+            fresh = all(
+                torch.equal(getattr(fm.stacked_params(model.mlp_coarse, cdt),
+                                    k),
+                            getattr(fm.stack_params(model.mlp_coarse, cdt),
+                                    k))
+                for k in fm.WEIGHT_NAMES)
+            print(f"  kernel weights after the remat steps match the "
+                  f"parameters: {'ok' if fresh else 'FAILED: stale'}",
+                  flush=True)
+            good &= fresh
+        loss_err = max(abs(lr[k] - ln[k]) / max(abs(ln[k]), 1e-30)
+                       for k in ln)
+        moved = (ar != an) & real
+        n_moved = int(moved.sum())
+        if n_moved:
+            trainer._assemble = ignoring(trainer._assemble, moved)
+            _, gn, _, _ = step(fused, False)
+            _, gr, _, _ = step(fused, True)
+            del trainer._assemble
+        worst, worst_name, missing = grad_diff(gr, gn)
+        var = fm.variant("pre_combine_pe", getattr(torch, dtype_name))
+        if fused == "auto":
+            counts = {m: (launched(kn, m, var), launched(kr, m, var))
+                      for m in ("pre_combine_pe", "post_combine")}
+            launch_ok = all(n > 0 and r == 2 * n for n, r in counts.values())
+            launches["yolo_3scale_" + dtype_name] = kn
+            launches["yolo_3scale_remat_" + dtype_name] = kr
+        else:
+            counts = {"all": (sum(kn.values()), sum(kr.values()))}
+            launch_ok = counts["all"] == (0, 0)
+        agree = (all(math.isfinite(v) for v in lr.values())
+                 and loss_err <= loss_tol and worst <= grad_tol
+                 and not missing and n_moved <= MAX_MOVED * int(real.sum()))
+        good &= agree and launch_ok
+        res[label] = {"no_remat": {"ms": ms_n, "peak_gib": peak_n,
+                                   "launches": kn},
+                      "remat": {"ms": ms_r, "peak_gib": peak_r,
+                                "launches": kr},
+                      "loss_err": loss_err, "grad_err": worst,
+                      "argmax_moved": n_moved}
+        print(f"3-scale YOLO {dtype_name} {label} route, {n_chunks} chunks "
+              f"of {chunk} rays: no remat {ms_n:.3f} ms/step, peak "
+              f"{peak_n:.2f} GiB, launches {kn}; remat {ms_r:.3f} ms/step, "
+              f"peak {peak_r:.2f} GiB, launches {kr} (no remat, remat: "
+              f"{counts}; remat must launch each kernel twice as often: "
+              f"{'ok' if launch_ok else 'FAILED'})", flush=True)
+        print(f"  remat vs no remat: losses {lr} | {ln}; max relative loss "
+              f"diff {loss_err:.3e} (tol {loss_tol}); argmax moved in "
+              f"{n_moved} of {int(real.sum())} real cells; worst gradient "
+              f"relative L2 {worst:.3e} at {worst_name} (tol {grad_tol}); "
+              f"gradient on one side only: {missing} "
+              f"{'ok' if agree else 'FAILED'}", flush=True)
+    results["yolo_3scale_" + dtype_name] = res
+    return good
+
+
+def remat_policies(device, tmp, launches, results) -> bool:
+    """Phase 10 (b): at phase 9's train_nerf point (8,192 rays, NS=1), in
+    f32 on the plain route, one step without remat and one under each
+    remat policy and remat_gather, from the same weights, pixels and draws:
+    losses and gradients against no remat, then MS_TIMED more steps of
+    each (ms/step, peak memory); then the same on the kernel route with
+    and without remat, whose full_pe launches are 2 passes x the chunks
+    of the remat budget x 2 (the replay); then a bf16 kernel-route step
+    with remat against one without, beside witnesses (``force_chunking``)
+    that take the replay and the chunking apart."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import TRAIN_NERF_RAYS
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    def one(fused, puts, dtype_name="float32", remat_chunks=None,
+            timed=True):
+        trainer, model, batch, draws = nerf_trainer(
+            device, dtype_name, tmp, 1, TRAIN_NERF_RAYS, puts)
+        model.use_fused_mlp = fused
+        if remat_chunks is not None:
+            force_chunking(trainer.renderer, remat_chunks)
+        fm.reset_launches()
+        _, losses, _ = train_steps(trainer, batch, 1, draws=draws)
+        grads = {n: None if p.grad is None else p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        counts = dict(fm.variant_launches)
+        times, peak = [math.nan], math.nan
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+            times, _, _ = train_steps(trainer, batch, MS_TIMED, draws=draws)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        out = (losses[0], grads, counts, statistics.median(times), peak,
+               trainer.renderer)
+        del trainer, model
+        torch.cuda.empty_cache()
+        return out
+
+    def against(got, base):
+        loss_err = max(abs(got[0][k] - base[0][k])
+                       / max(abs(base[0][k]), 1e-30) for k in base[0])
+        return (loss_err,) + grad_diff(got[1], base[1])
+
+    good, res = True, {}
+    loss_tol, grad_tol = REMAT_TOL["float32"]
+    base = one("false", {})
+    res["none"] = {"ms": base[3], "peak_gib": base[4]}
+    print(f"remat at the train_nerf point, f32 plain route, "
+          f"{TRAIN_NERF_RAYS} rays: no remat {base[3]:.3f} ms/step (median "
+          f"of {MS_TIMED} after one), peak {base[4]:.2f} GiB", flush=True)
+    for policy, gather in POLICIES:
+        got = one("false", {"model.remat": True,
+                            "model.remat_policy": policy,
+                            "model.remat_gather": gather})
+        loss_err, worst, worst_name, missing = against(got, base)
+        agree = (loss_err <= loss_tol and worst <= grad_tol and not missing
+                 and sum(got[2].values()) == 0)
+        good &= agree
+        name = "remat_gather" if gather else policy
+        res[name] = {"ms": got[3], "peak_gib": got[4], "loss_err": loss_err,
+                     "grad_err": worst}
+        print(f"  {name:12s}: {got[3]:.3f} ms/step, peak {got[4]:.2f} GiB; "
+              f"against no remat: loss {loss_err:.3e} (tol {loss_tol}), "
+              f"worst gradient relative L2 {worst:.3e} at {worst_name} (tol "
+              f"{grad_tol}) {'ok' if agree else 'FAILED'}", flush=True)
+
+    plain = one("auto", {})
+    got = one("auto", {"model.remat": True})
+    cb = got[5]._chunk_rays(TRAIN_NERF_RAYS, 1, 512, grad_remat=True)
+    n_chunks = -(-TRAIN_NERF_RAYS // cb)
+    var = fm.variant("full_pe", torch.float32)
+    want = 2 * n_chunks * 2
+    n = launched(got[2], "full_pe", var)
+    loss_err, worst, worst_name, missing = against(got, plain)
+    agree = (n == want and launched(plain[2], "full_pe", var) == 2
+             and loss_err <= loss_tol and worst <= grad_tol and not missing)
+    good &= agree
+    launches["train_nerf_remat_f32"] = got[2]
+    res["kernel"] = {"ms": got[3], "peak_gib": got[4],
+                     "no_remat_ms": plain[3], "no_remat_peak_gib": plain[4],
+                     "launches": got[2], "loss_err": loss_err,
+                     "grad_err": worst}
+    print(f"  f32 kernel route with remat: {got[3]:.3f} ms/step, peak "
+          f"{got[4]:.2f} GiB (without: {plain[3]:.3f} ms/step, "
+          f"{plain[4]:.2f} GiB); full_pe launches {n}, expected {want} (2 "
+          f"passes x {n_chunks} chunks of {cb} rays x 2, the replay); "
+          f"against no remat: loss {loss_err:.3e}, worst gradient relative "
+          f"L2 {worst:.3e} at {worst_name} {'ok' if agree else 'FAILED'}",
+          flush=True)
+    # bf16 on the kernel route: the step with remat (the remat budget's
+    # chunks) against the step without, held to REMAT_TOL, beside the same
+    # step without remat taken again (the gather's f32 atomics alone) and
+    # each change alone: remat at the no-remat chunking, no remat at the
+    # remat chunking
+    base = one("auto", {}, "bfloat16", timed=False)
+    res["bf16_witness"] = {}
+    loss_tol, grad_tol = REMAT_TOL["bfloat16"]
+    var = fm.variant("full_pe", torch.bfloat16)
+    print("  bf16 kernel route, against a step without remat (worst "
+          "gradient relative L2):", flush=True)
+    for name, puts, chunks in (
+            ("remat", {"model.remat": True}, None),
+            ("no remat again", {}, None),
+            ("remat, no-remat chunks", {"model.remat": True}, False),
+            ("no remat, remat chunks", {}, True)):
+        got = one("auto", puts, "bfloat16", chunks, timed=False)
+        loss_err, worst, worst_name, missing = against(got, base)
+        res["bf16_witness"][name] = {"loss_err": loss_err, "grad_err": worst,
+                                     "at": worst_name, "launches": got[2]}
+        verdict = "(printed)"
+        if name == "remat":
+            agree = (loss_err <= loss_tol and worst <= grad_tol
+                     and not missing and launched(got[2], "full_pe", var)
+                     == want)
+            good &= agree
+            launches["train_nerf_remat_bf16"] = got[2]
+            verdict = (f"(tol {loss_tol} / {grad_tol}, full_pe {want} "
+                       f"launches) {'ok' if agree else 'FAILED'}")
+        print(f"    {name:24s}: loss {loss_err:.3e}, gradient {worst:.3e} "
+              f"at {worst_name}; launches {got[2]} {verdict}", flush=True)
+    results["remat_train_nerf"] = res
+    return good
+
+
+def force_chunking(renderer, remat_budget: bool):
+    """Make the NeRF renderer chunk its rays by the remat budget
+    (remat_budget) or by the budget without remat, whether or not the
+    model is under remat."""
+    chunk_rays = renderer._chunk_rays
+
+    def forced(*args, **kwargs):
+        kwargs["grad_remat"] = remat_budget
+        return chunk_rays(*args, **kwargs)
+
+    # the renderer is a frozen dataclass: set the instance's attribute
+    object.__setattr__(renderer, "_chunk_rays", forced)
+
+
+def eval_threshold(raw, n_keep: int = 150) -> float:
+    """A confidence that about n_keep of the raw predicted boxes of raw
+    (the protocol's per-scale decode lists) exceed, in the widest gap
+    between neighbouring confidences around the n_keep-th: random weights
+    put most of the 27,216 boxes over the recipe's 0.45, and the host list
+    NMS is quadratic in them."""
+    import numpy as np
+
+    conf = np.sort(np.concatenate([
+        np.asarray([b[1] for sc in per_scale for b in sc], np.float64)
+        for _, per_scale in raw]))[::-1]
+    lo, hi = n_keep // 2, min(2 * n_keep, len(conf) - 1)
+    gaps = conf[lo:hi] - conf[lo + 1:hi + 1]
+    i = lo + int(np.argmax(gaps))
+    return float((conf[i] + conf[i + 1]) / 2)
+
+
+def top_boxes(per_scale, threshold, n=EVAL_GT_ADDED, max_iou=0.1):
+    """The n most confident boxes of one view's per-scale decode lists
+    above threshold, of a size a target can have (0.01 to 0.5 of the
+    view), none overlapping a more confident one by IoU > max_iou, as
+    [x, y, w, h, class] target rows."""
+    import numpy as np
+
+    from pixelnerf_yolo_torch.detect.boxes import iou
+
+    rows = sorted((b for sc in per_scale for b in sc
+                   if b[1] > threshold and 0.01 < b[4] < 0.5
+                   and 0.01 < b[5] < 0.5), key=lambda b: -b[1])
+    picked = []
+    for b in rows:
+        if all(float(np.asarray(iou(np.asarray(b[2:6]),
+                                    np.asarray(q[2:6]))).reshape(-1)[0])
+               <= max_iou for q in picked):
+            picked.append(b)
+        if len(picked) == n:
+            break
+    return [[*b[2:6], b[0]] for b in picked]
+
+
+@contextlib.contextmanager
+def metric_record(trainer, rec: dict):
+    """While open, appends to rec["boxes"] each (bbox_gt, bbox_pred) pair
+    the trainer's metric protocol yields and to rec["counts"] the (tp,
+    fp, fn) the trainer's F1 path counts for each."""
+    boxes_of, counts_of = trainer._iter_metric_boxes, trainer._tp_fp_fn_one
+    rec.update(boxes=[], counts=[])
+
+    def boxes(*args, **kwargs):
+        for item in boxes_of(*args, **kwargs):
+            rec["boxes"].append(item)
+            yield item
+
+    def counts(*args, **kwargs):
+        out = counts_of(*args, **kwargs)
+        rec["counts"].append(tuple(int(x) for x in out))
+        return out
+
+    trainer._iter_metric_boxes, trainer._tp_fp_fn_one = boxes, counts
+    try:
+        yield rec
+    finally:
+        del trainer._iter_metric_boxes, trainer._tp_fp_fn_one
+
+
+def kept_boxes_diff(trainer, got, want):
+    """(same, worst, n_kept, raw_same) over the views of two recordings of
+    the metric protocol (``metric_record``): same when each view's ground
+    truth is identical and the boxes the device NMS keeps of its predicted
+    boxes at the trainer's thresholds pair up one to one, each with a box
+    of the same class; worst the largest difference of a pair's score, x,
+    y, w or h relative to max(1, |value|) (pairs matched greedily by that
+    difference, so near-equal scores may swap order); n_kept the kept
+    boxes of got; raw_same whether the lists before NMS have one length
+    (cross-scale suppression's greedy order over the thousands of
+    low-confidence boxes may differ, which the NMS's cut drops)."""
+    import numpy as np
+    import torch
+
+    from pixelnerf_yolo_torch.detect.nms import nms_padded
+
+    def kept(pred):
+        rows = np.asarray(pred, np.float32).reshape(-1, 6)
+        k, v = nms_padded(torch.from_numpy(rows).to(trainer.device),
+                          trainer.nms_iou_threshold, trainer.nms_threshold,
+                          max(len(rows), 1))
+        return k[v].double().cpu().numpy()
+
+    same = len(got) == len(want)
+    worst, n_kept, raw_same = 0.0, 0, True
+    for (gt_g, pred_g), (gt_w, pred_w) in zip(got, want):
+        same &= gt_g == gt_w
+        raw_same &= len(pred_g) == len(pred_w)
+        g, w = kept(pred_g), kept(pred_w)
+        n_kept += len(g)
+        if len(g) != len(w):
+            same = False
+            continue
+        free = np.ones(len(w), bool)
+        for row in g:
+            d = np.max(np.abs(w[:, 1:] - row[1:])
+                       / np.maximum(1.0, np.abs(w[:, 1:])), axis=1)
+            d[~free | (w[:, 0] != row[0])] = np.inf
+            j = int(np.argmin(d))
+            if not np.isfinite(d[j]):
+                same = False
+                break
+            free[j] = False
+            worst = max(worst, float(d[j]))
+    return same, worst, n_kept, raw_same
+
+
+def multiscale_eval(device, dtype_name, tmp, launches, results) -> bool:
+    """Phase 10 (c) in one dtype: the recipe's metric protocol over phase
+    5's scene on the kernel route and the plain route, from the same
+    renders' draws.  A pass on the plain route first sets yolo.nms_threshold
+    to a confidence about 150 of the random weights' boxes exceed
+    (``eval_threshold``) and adds each destination's EVAL_GT_ADDED most
+    confident boxes to its ground truth (``top_boxes``), so that TP,
+    P/R/F1 and mAP carry signal.  Then on each route metric_and_map_step
+    as eval_yolo runs it by default (the device NMS), its TP/FP/FN of each
+    view and the box lists it consumed recorded (``metric_record``); in
+    f32 also calibrate_scales at the single combination [nms_threshold]
+    and, on the kernel route, metric_step with host matching
+    (``--host_nms``), which must equal it.  f32: the routes' TP/FP/FN of
+    every view and of calibrate_scales identical, the boxes the device NMS
+    keeps paired within EVAL_BOX_TOL (``kept_boxes_diff``), P/R/F1
+    identical, mAP within 1e-6 and TP above 0; bf16 printed."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import train_yolo_3scale_conf
+    from pixelnerf_yolo_torch.data import DataLoader
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    conf = train_yolo_3scale_conf(dtype_name)
+    trainer, model, _, batch = multiscale_trainer(
+        device, conf, os.path.join(tmp, "mse_" + dtype_name), MS_EVAL_SIZE)
+    view_rng = trainer._rng.bit_generator.state
+    f32 = dtype_name == "float32"
+
+    def fresh():
+        trainer._gen.manual_seed(2)
+        trainer._rng.bit_generator.state = view_rng
+
+    model.use_fused_mlp = "false"
+    fresh()
+    raw = list(trainer._iter_metric_boxes([batch], "per_scale"))
+    trainer.nms_threshold = eval_threshold(raw)
+    dests = [int(d) for views in trainer.metric_views for d in views]
+    extra = {}
+    for dest, (_, per_scale) in zip(dests, raw):
+        extra.setdefault(dest, top_boxes(per_scale, trainer.nms_threshold))
+    loader = [next(iter(DataLoader(
+        train_dataset(conf, MS_EVAL_SIZE, extra), batch_size=1)))]
+    print(f"3-scale evaluation {dtype_name}: nms_threshold "
+          f"{trainer.nms_threshold:.6f}; ground truth added from the plain "
+          f"route's most confident boxes: "
+          f"{ {v: len(b) for v, b in extra.items()} }", flush=True)
+    good, res = True, {"nms_threshold": trainer.nms_threshold,
+                       "gt_added": {v: len(b) for v, b in extra.items()}}
+    for fused, label in (("auto", "kernel"), ("false", "plain")):
+        model.use_fused_mlp = fused
+        fresh()
+        rec = {}
+        fm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with metric_record(trainer, rec):
+            (p, r, f1), (map50, per_class) = trainer.metric_and_map_step(
+                loader)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(fm.variant_launches)
+        total = tuple(map(sum, zip(*rec["counts"])))
+        res[label] = {"prf1": (p, r, f1), "map50": map50,
+                      "per_class": per_class, "seconds": sec,
+                      "launches": counts, "tp_fp_fn": total,
+                      "per_view": rec["counts"], "boxes": rec["boxes"]}
+        print(f"  {label} route, metric_and_map_step (device NMS): TP/FP/FN "
+              f"{'/'.join(map(str, total))} (per view {rec['counts']}), "
+              f"P/R/F1 {p:.6f}/{r:.6f}/{f1:.6f}, mAP@0.5 {map50:.8f} "
+              f"{per_class} in {sec:.3f} s (3 views x 3 scales, 3,024 rays "
+              f"each); launches {counts}", flush=True)
+        if fused == "auto":
+            var = fm.variant("pre_combine_pe", getattr(torch, dtype_name))
+            good &= (launched(counts, "pre_combine_pe", var) > 0
+                     and launched(counts, "post_combine", var) > 0)
+            launches["yolo_3scale_eval_" + dtype_name] = counts
+        else:
+            good &= sum(counts.values()) == 0
+        if not f32:
+            continue
+        fresh()
+        cal = trainer.calibrate_scales(loader, [trainer.nms_threshold])[0][0]
+        res[label]["calibrate"] = (cal["tp"], cal["fp"], cal["fn"])
+        txt = (f"  {label} route, calibrate_scales at "
+               f"[{trainer.nms_threshold:.6f}] (host matching): TP/FP/FN "
+               f"{cal['tp']}/{cal['fp']}/{cal['fn']}, P/R/F1 "
+               f"{cal['precision']:.6f}/{cal['recall']:.6f}/"
+               f"{cal['f1']:.6f}, mAP@0.5 {cal['map50']:.8f}")
+        if fused == "auto":
+            fresh()
+            host_rec = {}
+            trainer.use_host_nms = True
+            try:
+                with metric_record(trainer, host_rec):
+                    host = trainer.metric_step(loader)
+            finally:
+                trainer.use_host_nms = False
+            host_total = tuple(map(sum, zip(*host_rec["counts"])))
+            same = (host == (cal["precision"], cal["recall"], cal["f1"])
+                    and host_total == res[label]["calibrate"])
+            txt += (f"; metric_step with host matching: TP/FP/FN "
+                    f"{'/'.join(map(str, host_total))}, P/R/F1 "
+                    f"{'/'.join(f'{x:.6f}' for x in host)}: equal "
+                    f"{'ok' if same else 'FAILED'} (the host list NMS "
+                    f"keeps some of the ground truth's per-scale "
+                    f"duplicates that the device NMS drops, so its FN may "
+                    f"be larger)")
+            good &= same
+        print(txt, flush=True)
+    k, p = res["kernel"], res["plain"]
+    map_err = max([abs(k["map50"] - p["map50"])]
+                  + [abs(k["per_class"][c] - p["per_class"].get(c, math.inf))
+                     for c in k["per_class"]])
+    boxes_same, box_err, n_kept, raw_same = kept_boxes_diff(
+        trainer, k.pop("boxes"), p.pop("boxes"))
+    same = (k["prf1"] == p["prf1"] and k["per_view"] == p["per_view"]
+            and k.get("calibrate") == p.get("calibrate"))
+    agree = (same and boxes_same and box_err <= EVAL_BOX_TOL
+             and map_err <= 1e-6 and k["tp_fp_fn"][0] > 0)
+    res.update(box_err=box_err, map_err=map_err, n_kept=n_kept,
+               raw_same=raw_same)
+    print(f"  kernel vs plain route: TP/FP/FN of every view, P/R/F1"
+          f"{' and calibrate_scales' if f32 else ''} identical: {same}; the "
+          f"{n_kept} boxes the device NMS keeps pair up by class: "
+          f"{boxes_same}, largest difference {box_err:.3e}; lists before "
+          f"NMS of one length: {raw_same}; mAP differs by {map_err:.3e}; "
+          f"TP {k['tp_fp_fn'][0]} "
+          + ("(f32: identical, boxes within "
+             f"{EVAL_BOX_TOL}, mAP within 1e-6, TP > 0) "
+             + ("ok" if agree else "FAILED") if f32 else "(bf16: printed)"),
+          flush=True)
+    if f32:
+        good &= agree
+    results["yolo_3scale_eval_" + dtype_name] = res
+    return good
+
+
+# -- phase 11: NeRF evaluation ----------------------------------------------
+
+
+def nerf_eval_path(device):
+    """Phase 11: eval.evaluate (PSNR and SSIM of every target view) and
+    gen_video's render loop (an orbit) on the flagship NeRF model over
+    phase 9's scene, at NS=1 (full_pe) and NS=2 (pre_combine_pe +
+    post_combine), in bf16 and f32, on the kernel route and the plain
+    route with the same draws.  f32: PSNR within 1e-4 dB, SSIM within
+    1e-6, frames within RENDER_TOL; bf16 printed.  Returns (ok, launches
+    by path, results)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from pixelnerf_yolo_torch.eval.eval import evaluate
+    from pixelnerf_yolo_torch.eval.gen_video import render_video, trajectory
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    dset = nerf_train_dataset()
+    models = build_models(device)
+    poses = trajectory(VIDEO_FRAMES, -10.0, 0.5 * (NERF_NEAR + NERF_FAR))
+    ok, launches, results = True, {}, {}
+    for dtype_name in ("bfloat16", "float32"):
+        model, renderer = models[dtype_name]
+        renderer = dc.replace(renderer, eval_batch_size=EVAL_RAYS)
+        for ns, source in ((1, [0]), (2, [0, 3])):
+            out = {}
+            for fused in ("auto", "false"):
+                model.use_fused_mlp = fused
+                fm.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = evaluate(model, renderer, dset, source=np.array(source),
+                             ray_batch_size=EVAL_RAYS)
+                frames = render_video(model, renderer, dset[0],
+                                      np.array(source), poses, NERF_NEAR,
+                                      NERF_FAR, ray_batch_size=EVAL_RAYS)
+                torch.cuda.synchronize()
+                out[fused] = (m, frames, dict(fm.variant_launches),
+                              time.perf_counter() - t0)
+            (mk, fk, lk, sk), (mp, fp, lp, sp) = out["auto"], out["false"]
+            if ns == 1:
+                path_ok = (launched(lk, "full_pe", fm.variant(
+                    "full_pe", getattr(torch, dtype_name))) > 0
+                    and launched(lk, "pre_combine_pe") == 0)
+            else:
+                var = fm.variant("pre_combine_pe", getattr(torch, dtype_name))
+                path_ok = (launched(lk, "pre_combine_pe", var) > 0
+                           and launched(lk, "post_combine", var) > 0
+                           and launched(lk, "full_pe") == 0)
+            path_ok &= sum(lp.values()) == 0
+            d_psnr = abs(mk["psnr"] - mp["psnr"])
+            d_ssim = abs(mk["ssim"] - mp["ssim"])
+            d_frames = float(np.abs(fk - fp).max())
+            agree = (d_psnr <= EVAL_TOL["psnr"] and d_ssim <= EVAL_TOL["ssim"]
+                     and d_frames <= RENDER_TOL["float32"])
+            good = path_ok and np.isfinite(mk["psnr"]) and (
+                agree or dtype_name == "bfloat16")
+            ok &= good
+            key = f"nerf_eval_ns{ns}_{dtype_name}"
+            launches[key] = lk
+            results[key] = {"psnr": (mk["psnr"], mp["psnr"]),
+                            "ssim": (mk["ssim"], mp["ssim"]),
+                            "frames_max_diff": d_frames,
+                            "seconds": (sk, sp), "launches": lk}
+            side = NERF_TRAIN_SIZE
+            print(f"NeRF evaluation NS={ns} {dtype_name}: {len(mk['objects'])}"
+                  f" object, {NERF_TRAIN_VIEWS - ns} target views + "
+                  f"{VIDEO_FRAMES} orbit frames of {side}x{side}; kernel "
+                  f"route PSNR {mk['psnr']:.6f} "
+                  f"SSIM {mk['ssim']:.8f} in {sk:.3f} s, plain PSNR "
+                  f"{mp['psnr']:.6f} SSIM {mp['ssim']:.8f} in {sp:.3f} s; "
+                  f"|dPSNR| {d_psnr:.3e} |dSSIM| {d_ssim:.3e}, frames "
+                  f"max|diff| {d_frames:.3e}; launches {lk} "
+                  + ("ok" if good else "FAILED")
+                  + (" (bf16: differences printed)"
+                     if dtype_name == "bfloat16" else ""), flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return ok, launches, results
+
+
 def main() -> int:
     import torch
 
@@ -1451,7 +2163,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-9; prints the kernels line; True when every check held."""
+    """Phases 2-11; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -1539,12 +2251,20 @@ def run(device) -> bool:
     ok &= tok
     nok, nerf_train_launches, _ = nerf_train_path(device)
     ok &= nok
+    t10 = time.perf_counter()
+    mok, ms_launches, _ = multiscale_path(device)
+    ok &= mok
+    t11 = time.perf_counter()
+    eok, eval_launches, _ = nerf_eval_path(device)
+    ok &= eok
+    print(f"phase 10: {t11 - t10:.1f} s; phase 11: "
+          f"{time.perf_counter() - t11:.1f} s", flush=True)
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
              "train_step": train_launches["bfloat16"],
              "train_step_f32": train_launches["float32"],
-             **nerf_train_launches}
+             **nerf_train_launches, **ms_launches, **eval_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

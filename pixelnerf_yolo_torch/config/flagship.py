@@ -18,6 +18,10 @@ the YOLO renderer with 128 coarse samples and no fine samples.
 backbone, a 5-block 512-wide ResnetFC, 128 coarse samples and chunks of
 ``yolo.ray_batch_size`` 1024 rays.
 
+``train_yolo_3scale_conf`` is conf/exp/yolo_3scale.conf's recipe at that
+point: three cell scales (32, 16, 8 px) with its anchors, cross-scale
+suppression, ``max`` aggregation and ``model.remat``.
+
 ``train_nerf_conf`` is the NeRF trainer's operating point, ``bench.py``'s
 ``train_nerf`` config: the flagship NeRF model and renderer (ResNet34,
 5 x 512 ResnetFC, combine layer 3, 64 + 16 + 16 samples) over the same
@@ -145,6 +149,27 @@ yolo {{
 
 def train_yolo_conf(compute_dtype: str = "bfloat16") -> Config:
     return parse_string(_TRAIN_YOLO_CONF.format(compute_dtype=compute_dtype))
+
+
+# conf/exp/yolo_3scale.conf's anchors: row i pairs with cell_sizes[i], so
+# the coarse 32-px grid takes the large anchors
+YOLO_3SCALE_ANCHORS = [
+    [[0.28, 0.22], [0.38, 0.48], [0.9, 0.78]],
+    [[0.07, 0.15], [0.15, 0.11], [0.14, 0.29]],
+    [[0.02, 0.03], [0.04, 0.07], [0.08, 0.06]],
+]
+
+
+def train_yolo_3scale_conf(compute_dtype: str = "bfloat16",
+                           remat: bool = True) -> Config:
+    conf = train_yolo_conf(compute_dtype)
+    conf.put("model.mlp_coarse.num_scales", 3)
+    conf.put("model.remat", remat)
+    conf.put("renderer.aggregation", "max")
+    conf.put("yolo.cell_sizes", [32, 16, 8])
+    conf.put("yolo.cross_scale_nms_iou", 0.35)
+    conf.put("yolo.anchors", YOLO_3SCALE_ANCHORS)
+    return conf
 
 
 # the trainer schema of __graft_entry__._DRYRUN_YOLO_CONF with the loss

@@ -2,9 +2,10 @@
 
 Counterpart of pixelnerf_yolo_tpu/detect/nms_jax.py, in plain torch on the
 boxes' device with static shapes: boxes are padded, suppressed by mask,
-and the greedy loop runs ``max_out`` rounds of vectorized IoU tests.  It is
-*standard* greedy NMS; the reference's list NMS (``boxes.nms``) keeps its
-remove-while-iterating quirk and can keep extra boxes.
+and the greedy loop runs up to ``max_out`` rounds of vectorized IoU tests,
+stopping once no box is left.  It is *standard* greedy NMS; the
+reference's list NMS (``boxes.nms``) keeps its remove-while-iterating
+quirk and can keep extra boxes.
 """
 
 from __future__ import annotations
@@ -12,6 +13,10 @@ from __future__ import annotations
 import torch
 
 from ..losses.yolo import iou_xywh
+
+# rounds of the greedy loop between two looks (one host sync) at whether
+# any box is left
+STOP_CHECK = 32
 
 
 def nms_padded(boxes: torch.Tensor, iou_threshold: float,
@@ -31,17 +36,21 @@ def nms_padded(boxes: torch.Tensor, iou_threshold: float,
     arange = torch.arange(n, device=boxes.device)
     neg_inf = torch.tensor(-float("inf"), dtype=scores.dtype,
                            device=boxes.device)
-    kept_idx, kept_valid = [], []
-    for _ in range(max_out):
+    kept_idx = torch.zeros(max_out, dtype=torch.long, device=boxes.device)
+    kept_valid = torch.zeros(max_out, dtype=torch.bool, device=boxes.device)
+    for step in range(max_out):
+        # once no box is alive every later round keeps nothing (row 0,
+        # invalid): stop there, looking every STOP_CHECK rounds
+        if step % STOP_CHECK == 0 and not bool(alive.any()):
+            break
         masked = torch.where(alive, scores, neg_inf)
         best = torch.argmax(masked)
         valid = masked[best] > neg_inf
-        kept_idx.append(torch.where(valid, best, 0))
-        kept_valid.append(valid)
+        kept_idx[step] = torch.where(valid, best, 0)
+        kept_valid[step] = valid
         suppress = (ious[best] > iou_threshold) | (arange == best)
         alive = alive & (~suppress | ~valid)
-    kept_idx = torch.stack(kept_idx)
-    return boxes[kept_idx], torch.stack(kept_valid)
+    return boxes[kept_idx], kept_valid
 
 
 def decode_cells(predictions: torch.Tensor, anchors: torch.Tensor,

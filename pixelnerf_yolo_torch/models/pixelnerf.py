@@ -25,6 +25,12 @@ BatchNorm on the batch's statistics and updates the running ones;
 ``stop_encoder_grad`` (``--freeze_enc``) keeps the encoder in eval mode
 and detaches its latent.
 
+``model.remat`` recomputes the field in the backward instead of keeping
+its activations (``torch.utils.checkpoint``, non-reentrant);
+``model.remat_policy`` picks what the checkpoint keeps
+(``_resolve_remat_policy``)
+and ``model.remat_gather`` moves the latent gather inside it.
+
 ``encoder.pretrained = True`` grafts torchvision's ImageNet weights over a
 ResNet encoder's random init (nn/pretrained.py); without the npz it warns
 and keeps the random init, or raises when ``PNY_PRETRAINED_STRICT`` is
@@ -36,20 +42,57 @@ to overwrite.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import warnings
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.code import PositionalEncoding
-from ..nn.resnetfc import ResnetFC
+from ..nn.resnetfc import ResnetFC, block_out_contexts
 from ..ops import field_mlp
 from ..utils.indexing import repeat_interleave
 from .encoder import index_latent, make_encoder
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _resolve_remat_policy(name: str):
+    """model.remat_policy -> the checkpoint's ``context_fn``, or None for
+    the default (save nothing, recompute everything).
+
+    "block" keeps the ResnetFC block outputs (``nn.resnetfc.block_out``;
+    the fused route has no such point, so there it keeps nothing, as
+    "full"); "dots" keeps every matmul output (memory about that of the
+    plain backward)."""
+    if name in ("", "full"):
+        return None
+    if name == "block":
+        return block_out_contexts
+    if name == "dots":
+        return _dots_contexts
+    raise ValueError(
+        f"Unknown model.remat_policy {name!r} (expected '', 'full', "
+        "'block' or 'dots')"
+    )
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+    return (CheckpointPolicy.MUST_SAVE if op in dots
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def make_mlp(conf, d_in: int, d_latent: int = 0, allow_empty: bool = False,
@@ -80,7 +123,6 @@ _UNPORTED = {
     "use_global_encoder": "the global encoder",
     "latent_int8": "model.latent_int8 (ROADMAP.md Queue 1 item 19)",
     "mlp_int8": "model.mlp_int8 (ROADMAP.md Queue 1 item 19)",
-    "remat": "model.remat (ROADMAP.md Queue 1 item 17)",
     # the JAX package pre-projects by default in bf16 YOLO mode; the port
     # never does, and refuses only a conf that asks for it by name
     "latent_preproject": "model.latent_preproject (ROADMAP.md Queue 1 item 19)",
@@ -106,6 +148,20 @@ class PixelNeRF(nn.Module):
             if conf.get_bool(key, False):
                 raise NotImplementedError(f"{what} is not ported yet")
         self.compute_dtype = DTYPES[conf.get_string("compute_dtype", "float32")]
+        # model.remat: the field runs under a non-reentrant checkpoint in
+        # training; remat_policy selects what it keeps ("", "full",
+        # "block", "dots"); remat_gather re-gathers the latents inside it
+        # and so ignores the renderer's reused ones
+        self.remat = conf.get_bool("remat", False)
+        self.remat_policy = conf.get_string("remat_policy", "")
+        self._remat_context = _resolve_remat_policy(self.remat_policy)
+        self.remat_gather = conf.get_bool("remat_gather", False)
+        if self.remat_gather and not self.remat:
+            raise ValueError(
+                "model.remat_gather requires model.remat = true "
+                "(it moves the latent gather inside the checkpoint; "
+                "there is no checkpoint without remat)"
+            )
         self.use_encoder = conf.get_bool("use_encoder", True)
         if not self.use_encoder:
             raise NotImplementedError("models without the encoder are not "
@@ -142,11 +198,8 @@ class PixelNeRF(nn.Module):
                                  generator=generator)
         self.use_fused_mlp = conf.get("use_fused_mlp", "auto")
         self.d_in = d_in
+        # every scale runs the same field; d_out = 7 x anchors per scale
         self.yolo = conf.get_bool("mlp_coarse.yolo", False)
-        if self.yolo and conf.get_int("mlp_coarse.num_scales", 1) > 1:
-            raise NotImplementedError(
-                "multi-scale YOLO (mlp_coarse.num_scales > 1) is not ported "
-                "yet (ROADMAP.md Queue 1 item 16)")
         self.d_out = self.mlp_coarse.d_out
         self.d_latent = d_latent
 
@@ -320,11 +373,26 @@ class PixelNeRF(nn.Module):
         """Evaluate the conditioned field at world points.
 
         :param xyz (SB, B, 3); viewdirs (SB, B, 3) if use_viewdirs
-        :param latent optional project_latent(cond, xyz) result
+        :param latent optional project_latent(cond, xyz) result (ignored
+          under remat_gather)
         :return (SB, B, d_out): NeRF [sigmoid rgb, relu sigma]; YOLO raw
+
+        With model.remat and autograd on, the field runs under a
+        non-reentrant checkpoint: the backward replays it (kernel launches
+        included) instead of keeping its activations.
         """
-        return self._forward_impl(cond, xyz, coarse=coarse,
-                                  viewdirs=viewdirs, latent=latent)
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._forward_impl(cond, xyz, coarse=coarse,
+                                      viewdirs=viewdirs, latent=latent)
+        if self.remat_gather:
+            latent = None
+        kwargs = {}
+        if self._remat_context is not None:
+            kwargs["context_fn"] = self._remat_context
+        return checkpoint(
+            functools.partial(self._forward_impl, coarse=coarse),
+            cond, xyz, viewdirs=viewdirs, latent=latent,
+            use_reentrant=False, **kwargs)
 
     def _forward_impl(self, cond, xyz, coarse=True, viewdirs=None,
                       latent=None):

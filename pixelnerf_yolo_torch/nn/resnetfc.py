@@ -10,11 +10,16 @@ ops/field_mlp.py.
 Precision: parameters are f32.  Every hidden Dense follows flax's rounding
 points in the compute dtype: the product is rounded to the compute dtype,
 then the bias (cast to the compute dtype) is added.  lin_out runs in f32.
+
+Each block's output is the save point of the "block" remat policy
+(``block_out``); the fused kernels have none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +33,58 @@ def dense(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype) -> torch.Tensor:
     if m.bias is not None:
         y = y + m.bias.to(cdt)
     return y
+
+
+class _BlockOut(threading.local):
+    """``keep`` while a selective checkpoint that keeps the block outputs
+    runs its forward or its recompute; ``marking`` while ``block_out``
+    copies one (the policy tells that copy from every other op)."""
+
+    keep = False
+    marking = False
+
+
+_block_out = _BlockOut()
+
+
+def _keep_block_out(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if _block_out.marking
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _keeping(ctx):
+    old = _block_out.keep
+    _block_out.keep = True
+    try:
+        with ctx:
+            yield
+    finally:
+        _block_out.keep = old
+
+
+def block_out_contexts():
+    """The (forward, recompute) contexts of a selective checkpoint that
+    keeps each ResnetFC block's output (``model.remat_policy = block``)."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    fwd, rec = create_selective_checkpoint_contexts(_keep_block_out)
+    return _keeping(fwd), _keeping(rec)
+
+
+def block_out(x: torch.Tensor) -> torch.Tensor:
+    """A block's output x: under ``block_out_contexts`` a copy that the
+    checkpoint keeps, else x itself (JAX ``checkpoint_name(x,
+    "block_out")``)."""
+    if not _block_out.keep:
+        return x
+    _block_out.marking = True
+    try:
+        return x.clone()
+    finally:
+        _block_out.marking = False
 
 
 def activation(beta: float):
@@ -135,7 +192,7 @@ class ResnetFC(nn.Module):
                                         self.combine_type)
             if self.d_latent > 0 and blkid < self.combine_layer:
                 x = x + dense(z, self.lin_z[blkid], cdt)
-            x = self.blocks[blkid](x)
+            x = block_out(self.blocks[blkid](x))
         return dense(activation(self.beta)(x).float(), self.lin_out,
                      torch.float32)
 

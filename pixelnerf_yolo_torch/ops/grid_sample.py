@@ -51,6 +51,48 @@ def _apply_padding(coord, size: int, padding_mode: str, align_corners: bool):
     return coord  # zeros: OOB/non-finite handled by per-corner masking
 
 
+# rows of the gradient a slice of the f32 scatter-add takes at a time
+_GRAD_SLICE = 1 << 16
+
+
+class _GatherRowsF32Grad(torch.autograd.Function):
+    """torch.gather of rows whose backward sums the gradient in f32."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.table = (flat.shape, flat.dtype)
+        return torch.gather(flat, 1, idx[..., None].expand(
+            -1, -1, flat.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        acc = torch.zeros(shape, dtype=torch.float32, device=grad.device)
+        C = shape[-1]
+        for s in range(0, idx.shape[1], _GRAD_SLICE):
+            sl = slice(s, s + _GRAD_SLICE)
+            acc.scatter_add_(1, idx[:, sl, None].expand(-1, -1, C),
+                             grad[:, sl].float())
+        return acc.to(dtype), None
+
+
+def gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat[b, idx[b, n]]: (B, N, C) rows of a (B, R, C) table.
+
+    Where the table is bf16 or f16 and needs a gradient, the backward
+    sums each row's gradient in f32 and rounds it once.  torch.gather's
+    own backward on the card adds into the table's dtype by atomics, which
+    drop the small terms once a row's sum has grown (hundreds of samples
+    land on one latent row); how much is lost depends on how the rays are
+    chunked."""
+    if (flat.dtype in (torch.bfloat16, torch.float16)
+            and flat.requires_grad and torch.is_grad_enabled()):
+        return _GatherRowsF32Grad.apply(flat, idx)
+    return torch.gather(flat, 1, idx[..., None].expand(-1, -1, flat.shape[-1]))
+
+
 def _finite_clip(i, size: int):
     i = torch.where(torch.isfinite(i), i, torch.zeros_like(i))
     return torch.clamp(i, 0, size - 1)
@@ -72,7 +114,6 @@ def grid_sample_nhwc(
     :return (B, N, C) in flat's dtype
     """
     H, W = height, width
-    C = flat.shape[-1]
     gx = _unnormalize(grid[..., 0], W, align_corners)
     gy = _unnormalize(grid[..., 1], H, align_corners)
     gx = _apply_padding(gx, W, padding_mode, align_corners)
@@ -81,8 +122,7 @@ def grid_sample_nhwc(
 
     def gather(ix, iy, valid):
         idx = (iy * W + ix).to(torch.int64)  # (B, N)
-        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
-        return vals * valid[..., None]
+        return gather_rows(flat, idx) * valid[..., None]
 
     def in_range(ix, iy):
         return ((ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)).to(cdt)

@@ -1,7 +1,9 @@
-"""Bilinear resize with torch ``F.interpolate`` semantics, as two matmuls.
+"""Bilinear and area resize with torch ``F.interpolate`` semantics, as two
+matmuls.
 
-Counterpart of ``resize_bilinear`` in pixelnerf_yolo_tpu/ops/resize.py: the
-same separable interpolation matrices, built in numpy, contracted in f32.
+Counterpart of ``resize_bilinear`` and ``resize_area`` in
+pixelnerf_yolo_tpu/ops/resize.py: the same separable interpolation
+matrices, built in numpy, contracted in f32.
 """
 
 from __future__ import annotations
@@ -40,5 +42,27 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
         return x
     mh = torch.from_numpy(_interp_matrix(out_h, H, align_corners)).to(x.device)
     mw = torch.from_numpy(_interp_matrix(out_w, W, align_corners)).to(x.device)
+    y = torch.einsum("oh,bchw->bcow", mh, x.float())
+    return torch.einsum("pw,bcow->bcop", mw, y)
+
+
+def _area_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """Row i holds the box-integration weights of output sample i."""
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    scale = n_in / n_out
+    for i in range(n_out):
+        lo, hi = i * scale, (i + 1) * scale
+        for j in range(int(np.floor(lo)), int(np.ceil(hi))):
+            m[i, j] = min(hi, j + 1) - max(lo, j)
+    return m / scale
+
+
+def resize_area(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Area (adaptive-average) downsample (B, C, H, W) -> (B, C, out_h,
+    out_w) in f32, torch mode="area"."""
+    _, _, H, W = x.shape
+    out_h, out_w = out_hw
+    mh = torch.from_numpy(_area_matrix(out_h, H)).to(x.device)
+    mw = torch.from_numpy(_area_matrix(out_w, W)).to(x.device)
     y = torch.einsum("oh,bchw->bcow", mh, x.float())
     return torch.einsum("pw,bcow->bcop", mw, y)

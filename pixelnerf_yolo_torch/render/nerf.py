@@ -87,15 +87,22 @@ class NeRFRenderer:
     # -- internals -------------------------------------------------------
 
     def _chunk_rays(self, n_rays_per_scene: int, n_views: int = 1,
-                    latent_width: int = 512) -> int:
+                    latent_width: int = 512,
+                    grad_remat: bool = False) -> int:
         """Rays per chunk: a budget of ~2M field rows per chunk (rows =
         rays x the largest per-pass sample count x source views), scaled
         down for latents wider than 512; the conf's eval_batch_size only
-        raises the budget.  Chunks are split evenly."""
+        raises the budget.  Chunks are split evenly.
+
+        grad_remat (training with model.remat): a 2^19-row budget, and
+        eval_batch_size ignored, as in the JAX package: the checkpointed
+        field's backward rebuilds a chunk's block activations at once."""
         k_max = self.n_coarse + (self.n_fine if self.using_fine else 0)
         rows_per_ray = max(k_max, 1) * max(n_views, 1)
-        budget = (1 << 21) * 512 // max(latent_width, 512)
-        cap = max(1, max(self.eval_batch_size, budget) // rows_per_ray)
+        budget = (1 << (19 if grad_remat else 21)) * 512 // max(
+            latent_width, 512)
+        ebs = budget if grad_remat else max(self.eval_batch_size, budget)
+        cap = max(1, ebs // rows_per_ray)
         if n_rays_per_scene <= cap:
             return n_rays_per_scene
         nc = -(-n_rays_per_scene // cap)
@@ -129,7 +136,8 @@ class NeRFRenderer:
         """Evaluate the field at all sample points of a chunk.
 
         rays (B, 8); z_samp (B, K).  Returns (B, K, d_out), and with
-        return_latent also the (SB*NS, B*K/SB, C) latents for reuse.
+        return_latent also the (SB*NS, B*K/SB, C) latents for reuse (None
+        where the model gathers inside its checkpoint, remat_gather).
         """
         B, K = z_samp.shape
         points = rays[:, None, :3] + z_samp[..., None] * rays[:, None, 3:6]
@@ -137,7 +145,8 @@ class NeRFRenderer:
         vd = None
         if model.use_viewdirs:
             vd = rays[:, None, 3:6].expand(B, K, 3).reshape(sb, -1, 3)
-        lat = model.project_latent(cond, pts)
+        lat = (None if getattr(model, "remat_gather", False)
+               else model.project_latent(cond, pts))
         out = model.forward(cond, pts, coarse=coarse, viewdirs=vd, latent=lat)
         out = out.reshape(B, K, -1)
         return (out, lat) if return_latent else out
@@ -158,18 +167,21 @@ class NeRFRenderer:
         """Fine pass evaluated in unsorted union order, so that the first
         k_coarse samples reuse the coarse pass's latents; the outputs are
         then put in sorted-z order (stable sort) before compositing.  The
-        sort and the gather pass gradients to both z and the outputs."""
+        sort and the gather pass gradients to both z and the outputs.
+        Without coarse latents (remat_gather) the field gathers them all."""
         B, Ku = z_union.shape
         Kn = Ku - k_coarse
         Bp = B // sb
-        z_new = z_union[:, k_coarse:]
-        pts_new = rays[:, None, :3] + z_new[..., None] * rays[:, None, 3:6]
-        lat_new = model.project_latent(cond, pts_new.reshape(sb, -1, 3))
-        C = lat_new.shape[-1]
-        lat_u = torch.cat(
-            [latent_c.reshape(-1, Bp, k_coarse, C),
-             lat_new.reshape(-1, Bp, Kn, C)], dim=2,
-        ).reshape(-1, Bp * Ku, C)
+        lat_u = None
+        if latent_c is not None:
+            z_new = z_union[:, k_coarse:]
+            pts_new = rays[:, None, :3] + z_new[..., None] * rays[:, None, 3:6]
+            lat_new = model.project_latent(cond, pts_new.reshape(sb, -1, 3))
+            C = lat_new.shape[-1]
+            lat_u = torch.cat(
+                [latent_c.reshape(-1, Bp, k_coarse, C),
+                 lat_new.reshape(-1, Bp, Kn, C)], dim=2,
+            ).reshape(-1, Bp * Ku, C)
         pts_u = rays[:, None, :3] + z_union[..., None] * rays[:, None, 3:6]
         vd = None
         if model.use_viewdirs:
@@ -250,8 +262,11 @@ class NeRFRenderer:
     def _render(self, model, cond, rays, generator, draws, want_weights,
                 train):
         sb, n_rays = rays.shape[:2]
-        cb = self._chunk_rays(n_rays, cond.num_views_per_obj,
-                              latent_width=cond.latent_flat.shape[-1])
+        cb = self._chunk_rays(
+            n_rays, cond.num_views_per_obj,
+            latent_width=cond.latent_flat.shape[-1],
+            grad_remat=train and torch.is_grad_enabled()
+            and getattr(model, "remat", False))
         pad = (-n_rays) % cb
         if pad:
             rays = torch.cat([rays, rays[:, :1].expand(sb, pad, 8)], dim=1)

@@ -12,21 +12,28 @@ Counterpart of pixelnerf_yolo_tpu/train/yolo_trainer.py on one device:
   * BatchNorm runs on the batch's statistics in a train step and updates
     the running ones, unless the encoder is frozen (``--freeze_enc``:
     eval-mode BatchNorm, detached latent); an eval step changes nothing;
-  * vis_step / metric_step render a destination view, decode the cells,
-    run NMS and count TP/FP/FN (``detect.tp_fp_fn_padded`` on the device,
-    or the host list path with ``--host_nms``).
+  * with ``num_scales > 1`` each scale's rays and targets are padded to
+    whole chunks of their own, so every chunk belongs to one scale and
+    takes that scale's anchors;
+  * vis_step / metric_step render a destination view at each scale,
+    decode the cells, keep each scale's boxes above its
+    ``yolo.nms_threshold_per_scale`` (when set), drop cross-scale
+    duplicates (``yolo.cross_scale_nms_iou``), run NMS and count TP/FP/FN
+    (``detect.tp_fp_fn_padded`` on the device, or the host list path with
+    ``--host_nms``); map_step adds mAP over the same protocol, and
+    calibrate_scales sweeps per-scale thresholds over one rendering of it.
 The field runs through the fused kernels when the model takes them
 (``PixelNeRF._can_fuse``): kernel forward, plain-module backward.
 
 The coarse draws come from a ``torch.Generator`` seeded ``seed + 2`` on
 the trainer's device, or are given (``u=``) as the JAX package's
-``jax.random`` would make them.  The multi-scale YOLO path
-(ROADMAP.md Queue 1 item 16), ``map_step`` and ``calibrate_scales``
-(item 18) and multi-GPU (item 20) are not ported yet.
+``jax.random`` would make them.  Multi-GPU (ROADMAP.md Queue 1 item 20)
+is not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import numpy as np
@@ -38,7 +45,9 @@ from ..detect.boxes import (
     convert_cells_to_bboxes,
     draw_bounding_boxes,
     nms,
+    suppress_cross_scale,
 )
+from ..detect.map import map_from_raw_boxes
 from ..detect.nms import tp_fp_fn_padded
 from ..losses.yolo import YoloLoss
 from ..utils import camera
@@ -66,10 +75,6 @@ class YOLOTrainer(Trainer):
         self.z_far = dset.z_far
 
         self.num_scales = conf["model.mlp_coarse.num_scales"]
-        if self.num_scales > 1:
-            raise NotImplementedError(
-                "multi-scale YOLO training is not ported yet (ROADMAP.md "
-                "Queue 1 item 16)")
         self.num_anchors_per_scale = conf[
             "model.mlp_coarse.num_anchors_per_scale"
         ]
@@ -84,12 +89,26 @@ class YOLOTrainer(Trainer):
         self.early_restart = conf["yolo.early_restart"]
         self.nms_iou_threshold = conf["yolo.nms_iou_threshold"]
         self.nms_threshold = conf["yolo.nms_threshold"]
+        # cross-scale duplicate suppression (0 = off) and the per-scale
+        # confidence filters applied before it, padded with 0 to
+        # num_scales (unset = the global nms_threshold only)
+        self.cross_scale_nms_iou = conf.get_float(
+            "yolo.cross_scale_nms_iou", 0.0)
+        pst = conf.get_list("yolo.nms_threshold_per_scale", None)
+        self.nms_threshold_per_scale = (
+            ([float(t) for t in pst] + [0.0] * self.num_scales)
+            [: self.num_scales] if pst else None
+        )
         self.metric_views = conf["yolo.metric_views"]
         self.match_iou_threshold = conf["yolo.match_iou_threshold"]
         print("n_coarse", conf["renderer.n_coarse"])
         print("nms_iou_threshold", self.nms_iou_threshold)
         print("nms_threshold", self.nms_threshold)
         print("match_iou_threshold", self.match_iou_threshold)
+        if self.cross_scale_nms_iou > 0:
+            print("cross_scale_nms_iou", self.cross_scale_nms_iou)
+        if self.nms_threshold_per_scale is not None:
+            print("nms_threshold_per_scale", self.nms_threshold_per_scale)
 
         checkpoints.load_weights(args, self.model)
         self.init_opt_state(self.model.parameters())
@@ -275,7 +294,11 @@ class YOLOTrainer(Trainer):
                 render, self.anchors[scale_idx], H_scaled, W_scaled,
                 is_predictions=True)[0])
         boxes_gt = [b for sub in boxes_gt for b in sub]
-        boxes_predicted = [b for sub in boxes_predicted for b in sub]
+        if only_bbox == "per_scale":
+            # raw per-scale decode lists, for calibrate_scales
+            return boxes_gt, boxes_predicted
+        boxes_predicted = self._filter_scales(boxes_predicted,
+                                              self.nms_threshold_per_scale)
         if only_bbox:
             return boxes_gt, boxes_predicted
 
@@ -302,7 +325,19 @@ class YOLOTrainer(Trainer):
                          draw_bounding_boxes(dest_img, boxes_predicted)])
         return vis, None
 
-    def _iter_metric_boxes(self, data_loader):
+    def _filter_scales(self, per_scale, taus):
+        """One list of predicted boxes from per-scale lists: each scale's
+        boxes at or above its tau (taus None: all), then, with more than
+        one scale and cross_scale_nms_iou > 0, the cross-scale duplicates
+        dropped (``suppress_cross_scale``)."""
+        if taus is not None:
+            per_scale = [[b for b in sc if b[1] >= t]
+                         for sc, t in zip(per_scale, taus)]
+        if self.num_scales > 1 and self.cross_scale_nms_iou > 0:
+            return suppress_cross_scale(per_scale, self.cross_scale_nms_iou)
+        return [b for sub in per_scale for b in sub]
+
+    def _iter_metric_boxes(self, data_loader, only_bbox=True):
         """Every (scene x view triple x destination) of the metric
         protocol, rendered once: raw (bbox_gt, bbox_pred) decode lists."""
         for data in data_loader:
@@ -310,7 +345,7 @@ class YOLOTrainer(Trainer):
                 views = np.array(views)
                 for dest in views:
                     yield self.vis_step(data, idx=0, srcs=views, dest=dest,
-                                        only_bbox=True)
+                                        only_bbox=only_bbox)
 
     def _tp_fp_fn_one(self, bbox_gt, bbox_pred, print_hc=False):
         if self.use_host_nms:
@@ -353,13 +388,65 @@ class YOLOTrainer(Trainer):
         return self._f1_from_boxes(self._iter_metric_boxes(data_loader),
                                    print_hc)
 
+    def _map_from_boxes(self, boxes, iou_threshold=0.5):
+        per_gt, per_pred = zip(*boxes) if boxes else ((), ())
+        return map_from_raw_boxes(list(per_gt), list(per_pred),
+                                  self.nms_iou_threshold, iou_threshold)
+
     def map_step(self, data_loader, iou_threshold=0.5):
-        raise NotImplementedError(
-            "map_step is not ported yet (ROADMAP.md Queue 1 item 18)")
+        """mAP@iou_threshold over metric_step's protocol; the predictions
+        keep a confidence floor near 0, so the whole precision-recall curve
+        is swept (detect/map.py).
+
+        :return (mAP, {class: AP})
+        """
+        return self._map_from_boxes(
+            list(self._iter_metric_boxes(data_loader)), iou_threshold)
 
     def calibrate_scales(self, data_loader, grid, iou_threshold=0.5):
-        raise NotImplementedError(
-            "calibrate_scales is not ported yet (ROADMAP.md Queue 1 item 18)")
+        """Per-scale confidence calibration, with no retraining: render the
+        metric protocol once, keeping each scale's raw boxes, then score
+        every combination of per-scale thresholds from ``grid`` (applied
+        before cross-scale suppression and NMS) by P/R/F1, counted on the
+        host (``calculate_tp_fp_fn``), and mAP@iou_threshold.
+
+        :return (results, best): results a list of {taus, precision,
+          recall, f1, map50, per_class, tp, fp, fn}; best the one with the
+          highest (f1, map50)
+        """
+        raw = list(self._iter_metric_boxes(data_loader, "per_scale"))
+        results = []
+        for taus in itertools.product(grid, repeat=self.num_scales):
+            boxes = [(gt, self._filter_scales(per_scale, taus))
+                     for gt, per_scale in raw]
+            tp = fp = fn = 0
+            for gt, pred in boxes:
+                t_, f_, n_ = calculate_tp_fp_fn(
+                    gt, pred, self.nms_iou_threshold, self.nms_threshold,
+                    self.match_iou_threshold)
+                tp, fp, fn = tp + t_, fp + f_, fn + n_
+            precision = tp / (tp + fp) if tp + fp else 0.0
+            recall = tp / (tp + fn) if tp + fn else 0.0
+            f1 = (2 * precision * recall / (precision + recall)
+                  if precision + recall else 0.0)
+            map50, per_class = self._map_from_boxes(boxes, iou_threshold)
+            results.append({
+                "taus": taus, "precision": precision, "recall": recall,
+                "f1": f1, "map50": map50, "per_class": per_class,
+                "tp": tp, "fp": fp, "fn": fn,
+            })
+        best = max(results, key=lambda r: (r["f1"], r["map50"]))
+        return results, best
+
+    def metric_and_map_step(self, data_loader, iou_threshold=0.5,
+                            print_hc=False):
+        """F1 and mAP from one rendering of the metric protocol.
+
+        :return ((precision, recall, f1), (mAP, {class: AP}))
+        """
+        boxes = list(self._iter_metric_boxes(data_loader))
+        return (self._f1_from_boxes(boxes, print_hc),
+                self._map_from_boxes(boxes, iou_threshold))
 
 
 def make_trainer(args, conf, dset, val_dset, model, renderer, nviews,

@@ -5,6 +5,10 @@ Counterpart of ``gen_rays``, ``unproj_map``, ``_expand_focal``,
 pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
 OpenGL-style camera (x right, y up, z backward) and camera-to-world poses.
 YOLO mode: world-to-camera extrinsics and a pinhole K (z forward).
+
+Also the pose constructors of the evaluation CLIs' trajectories, numpy
+copies of the JAX package's (``coord_from_blender`` ... ``dtu_trajectory``),
+and ``quat_to_rot`` / ``rot_to_quat`` in torch.
 """
 
 from __future__ import annotations
@@ -168,3 +172,155 @@ def gen_rays_yolo_np(poses, width: int, height: int, focal, c, z_near,
     fars = np.full((B, height, width, 1), z_far, dtype=np.float32)
     return np.concatenate(
         [origins, dirs_world.astype(np.float32), nears, fars], axis=-1)
+
+
+# -- pose constructors (host side) -------------------------------------------
+
+
+def coord_from_blender() -> np.ndarray:
+    return np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0], [0, 0, 0, 1]],
+                    dtype=np.float32)
+
+
+def coord_to_blender() -> np.ndarray:
+    return np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+                    dtype=np.float32)
+
+
+def look_at(origin, target, world_up=None) -> np.ndarray:
+    """4x4 camera-to-world for a camera at ``origin`` looking at ``target``."""
+    if world_up is None:
+        world_up = np.array([0, 1, 0], dtype=np.float32)
+    origin = np.asarray(origin, dtype=np.float32)
+    back = origin - np.asarray(target, dtype=np.float32)
+    back /= np.linalg.norm(back)
+    right = np.cross(world_up, back)
+    right /= np.linalg.norm(right)
+    up = np.cross(back, right)
+    c2w = np.empty((4, 4), dtype=np.float32)
+    c2w[:3, 0] = right
+    c2w[:3, 1] = up
+    c2w[:3, 2] = back
+    c2w[:3, 3] = origin
+    c2w[3, :] = [0, 0, 0, 1]
+    return c2w
+
+
+def trans_t(t: float) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[2, 3] = t
+    return m
+
+
+def rot_phi(phi: float) -> np.ndarray:
+    cp, sp = np.cos(phi), np.sin(phi)
+    return np.array(
+        [[1, 0, 0, 0], [0, cp, -sp, 0], [0, sp, cp, 0], [0, 0, 0, 1]],
+        dtype=np.float32)
+
+
+def rot_theta(th: float) -> np.ndarray:
+    ct, st = np.cos(th), np.sin(th)
+    return np.array(
+        [[ct, 0, -st, 0], [0, 1, 0, 0], [st, 0, ct, 0], [0, 0, 0, 1]],
+        dtype=np.float32)
+
+
+def rot_kappa(kappa: float) -> np.ndarray:
+    ck, sk = np.cos(kappa), np.sin(kappa)
+    return np.array(
+        [[ck, -sk, 0, 0], [sk, ck, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+        dtype=np.float32)
+
+
+_SPHERICAL_FLIP = np.array(
+    [[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+    dtype=np.float32)
+_SPHERICAL2_FLIP = np.array(
+    [[-1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+    dtype=np.float32)
+
+
+def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
+    """360-degree orbit pose (NeRF convention), angles in degrees."""
+    c2w = trans_t(radius)
+    c2w = rot_phi(phi / 180.0 * np.pi) @ c2w
+    c2w = rot_theta(theta / 180.0 * np.pi) @ c2w
+    return _SPHERICAL_FLIP @ c2w
+
+
+def pose_spherical2(theta: float, kappa: float, radius: float) -> np.ndarray:
+    c2w = trans_t(radius)
+    c2w = rot_kappa(kappa / 180.0 * np.pi) @ c2w
+    c2w = rot_theta(theta / 180.0 * np.pi) @ c2w
+    return _SPHERICAL2_FLIP @ c2w
+
+
+# IDR's DTU fly-through keyframes: times, camera quaternions [w, x, y, z]
+# (periodic: the last is the first) and radial scales
+_DTU_TRAJ_T = np.array([0, 2, 3, 5, 6], dtype=np.float32)
+_DTU_TRAJ_QUAT = np.array(
+    [
+        [0.9698, 0.2121, 0.1203, -0.0039],
+        [0.7020, 0.1578, 0.4525, 0.5268],
+        [0.6766, 0.3176, 0.5179, 0.4161],
+        [0.9085, 0.4020, 0.1139, -0.0025],
+        [0.9698, 0.2121, 0.1203, -0.0039],
+    ],
+    dtype=np.float32,
+)
+_DTU_TRAJ_SCALE = np.array([2.0] * 5, dtype=np.float32)
+
+
+def dtu_trajectory(num_views: int) -> np.ndarray:
+    """IDR DTU fly-through poses (F, 4, 4), F = 6 * max(num_views // 5, 1):
+    a periodic cubic spline through the quaternion keyframes above,
+    renormalized per frame, the camera at R[:, 2] * scale."""
+    from scipy.interpolate import CubicSpline
+
+    n_inter = max(num_views // 5, 1)
+    t_out = np.linspace(
+        _DTU_TRAJ_T[0], _DTU_TRAJ_T[-1], n_inter * int(_DTU_TRAJ_T[-1]),
+        endpoint=False,
+    ).astype(np.float32)
+    s_new = CubicSpline(_DTU_TRAJ_T, _DTU_TRAJ_SCALE, bc_type="periodic")(
+        t_out)
+    q_new = CubicSpline(_DTU_TRAJ_T, _DTU_TRAJ_QUAT, bc_type="periodic")(
+        t_out)
+    q_new = q_new / np.linalg.norm(q_new, 2, axis=1)[:, None]
+
+    R = quat_to_rot(torch.from_numpy(q_new.astype(np.float32))).numpy()
+    poses = np.tile(np.eye(4, dtype=np.float32), (len(t_out), 1, 1))
+    poses[:, :3, :3] = R
+    poses[:, :3, 3] = R[:, :, 2] * s_new[:, None].astype(np.float32)
+    return poses
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions (B, 4) [w, x, y, z], unit-normalized here -> rotation
+    matrices (B, 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+    qr, qi, qj, qk = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    r00 = 1 - 2 * (qj**2 + qk**2)
+    r01 = 2 * (qj * qi - qk * qr)
+    r02 = 2 * (qi * qk + qr * qj)
+    r10 = 2 * (qj * qi + qk * qr)
+    r11 = 1 - 2 * (qi**2 + qk**2)
+    r12 = 2 * (qj * qk - qi * qr)
+    r20 = 2 * (qk * qi - qj * qr)
+    r21 = 2 * (qj * qk + qi * qr)
+    r22 = 1 - 2 * (qi**2 + qj**2)
+    return torch.stack([
+        torch.stack([r00, r01, r02], dim=-1),
+        torch.stack([r10, r11, r12], dim=-1),
+        torch.stack([r20, r21, r22], dim=-1),
+    ], dim=-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (B, 3, 3) -> quaternions (B, 4) [w, x, y, z]."""
+    w = torch.sqrt(1.0 + R[:, 0, 0] + R[:, 1, 1] + R[:, 2, 2]) / 2.0
+    x = (R[:, 2, 1] - R[:, 1, 2]) / (4 * w)
+    y = (R[:, 0, 2] - R[:, 2, 0]) / (4 * w)
+    z = (R[:, 1, 0] - R[:, 0, 1]) / (4 * w)
+    return torch.stack([w, x, y, z], dim=-1)

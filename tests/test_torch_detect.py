@@ -62,7 +62,7 @@ def test_decode_cells_matches(rng, is_predictions):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("max_out", [8, 64])
+@pytest.mark.parametrize("max_out", [8, 64, 33, 256])
 def test_nms_padded_matches(seed, max_out):
     rng = np.random.default_rng(seed)
     boxes = _boxes(rng, 40, n_pad=12)

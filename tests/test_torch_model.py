@@ -272,10 +272,6 @@ def test_unported_options_raise():
     from pixelnerf_yolo_torch.models import make_model
 
     conf = small_flagship()
-    conf.put("model.remat", True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        make_model(conf.get_config("model"), device="cpu")
-    conf = small_flagship()
     conf.put("renderer.early_terminate", 0.5)
     with pytest.raises(NotImplementedError, match="early_terminate"):
         make_renderer(conf, device="cpu")

@@ -235,3 +235,22 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("n", [3000, 70000])
+def test_gather_rows_bf16_sums_the_gradient_in_f32(n):
+    """A bf16 table's gather gradient is the f32 sum of its rows' terms,
+    rounded once, however many samples share a row (70,000 rows: the
+    backward's slices); the forward is torch.gather's."""
+    g = torch.Generator().manual_seed(0)
+    flat = torch.randn(2, 4, 8, generator=g).bfloat16().requires_grad_()
+    idx = torch.randint(0, 4, (2, n), generator=g)
+    grad = (torch.rand(2, n, 8, generator=g) * 0.5 + 0.5).bfloat16()
+    got = tgs.gather_rows(flat, idx)
+    assert torch.equal(got, torch.gather(
+        flat.detach(), 1, idx[..., None].expand(-1, -1, 8)))
+    got.backward(grad)
+    ref = torch.zeros(2, 4, 8, dtype=torch.float64).scatter_add_(
+        1, idx[..., None].expand(-1, -1, 8), grad.double())
+    torch.testing.assert_close(flat.grad.double(),
+                               ref.bfloat16().double(), rtol=2**-8, atol=0)

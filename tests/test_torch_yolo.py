@@ -329,10 +329,6 @@ def test_render_draws_from_generator(jax_side, render_ref):
 
 
 def test_unported_yolo_options_raise():
-    conf = small_yolo()
-    conf.put("model.mlp_coarse.num_scales", 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        make_model(conf.get_config("model"), device="cpu")
     conf = small_yolo("bfloat16")
     conf.put("model.latent_preproject", True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 19"):

@@ -179,21 +179,29 @@ def train_args(tmp_path, name, **extra):
     return args
 
 
-def yolo_train_conf(parse, use_fused_mlp, compute_dtype="float32"):
+def _put(conf, puts):
+    for k, v in (puts or {}).items():
+        conf.put(k, v)
+    return conf
+
+
+def yolo_train_conf(parse, use_fused_mlp, compute_dtype="float32",
+                    puts=None):
     """The JAX package's dry-run YOLO trainer conf (resnet18 with 2 layers,
     d_hidden 64, 16 coarse samples, 16-ray chunks) through ``parse`` (either
-    package's hocon); the JAX package's bf16 latent pre-projection off."""
+    package's hocon); the JAX package's bf16 latent pre-projection off;
+    then the keys of ``puts`` set."""
     from __graft_entry__ import _DRYRUN_YOLO_CONF
 
     conf = parse(_DRYRUN_YOLO_CONF)
     conf.put("model.use_fused_mlp", use_fused_mlp)
     conf.put("model.compute_dtype", compute_dtype)
     conf.put("model.latent_preproject", False)
-    return conf
+    return _put(conf, puts)
 
 
 def jax_yolo_trainer(root, tmp_path, use_fused_mlp, compute_dtype="float32",
-                     freeze_enc=False):
+                     freeze_enc=False, puts=None):
     """A JAX YOLOTrainer on the dataset at root with perturbed weights
     (every MLP weight and the encoder's BatchNorm moved off its init)."""
     from pixelnerf_yolo_tpu.config.hocon import parse_string
@@ -203,7 +211,7 @@ def jax_yolo_trainer(root, tmp_path, use_fused_mlp, compute_dtype="float32",
     from pixelnerf_yolo_tpu.render import make_renderer
     from pixelnerf_yolo_tpu.train import make_trainer
 
-    conf = yolo_train_conf(parse_string, use_fused_mlp, compute_dtype)
+    conf = yolo_train_conf(parse_string, use_fused_mlp, compute_dtype, puts)
     dset, val_dset, _ = get_split_dataset("yolo", root, conf=conf)
     jm = make_model(conf.get_config("model"), stop_encoder_grad=freeze_enc)
     jr = make_renderer(conf)
@@ -217,7 +225,8 @@ def jax_yolo_trainer(root, tmp_path, use_fused_mlp, compute_dtype="float32",
 
 
 def port_yolo_trainer(root, tmp_path, variables, use_fused_mlp,
-                      compute_dtype="float32", freeze_enc=False, **extra):
+                      compute_dtype="float32", freeze_enc=False, puts=None,
+                      **extra):
     """The port's YOLOTrainer on the CPU with the JAX variables' weights."""
     from pixelnerf_yolo_torch.config.hocon import parse_string
     from pixelnerf_yolo_torch.convert import from_jax_variables
@@ -226,7 +235,7 @@ def port_yolo_trainer(root, tmp_path, variables, use_fused_mlp,
     from pixelnerf_yolo_torch.render import make_renderer
     from pixelnerf_yolo_torch.train import make_trainer
 
-    conf = yolo_train_conf(parse_string, use_fused_mlp, compute_dtype)
+    conf = yolo_train_conf(parse_string, use_fused_mlp, compute_dtype, puts)
     dset, val_dset, _ = get_split_dataset("yolo", root, conf=conf)
     model = make_model(conf.get_config("model"), device="cpu",
                        stop_encoder_grad=freeze_enc)
@@ -309,7 +318,7 @@ NERF_TRAIN_SIZE = 32  # SRN views are read at this size
 
 
 def nerf_train_conf(parse, use_fused_mlp, noise_std=0.0,
-                    compute_dtype="float32"):
+                    compute_dtype="float32", puts=None):
     """bench.py's train_nerf conf at test size through ``parse`` (either
     package's hocon): the small flagship (resnet18 with 2 layers, d_hidden
     64, 64 + 16 + 16 samples) over the dry-run trainer schema, MSE on both
@@ -320,7 +329,7 @@ def nerf_train_conf(parse, use_fused_mlp, noise_std=0.0,
     for k in ("model", "renderer"):
         conf.put(k, flag.get_config(k).to_dict())
     conf.put("renderer.noise_std", noise_std)
-    return conf
+    return _put(conf, puts)
 
 
 def nerf_datasets(get_split_dataset, root):
@@ -330,7 +339,7 @@ def nerf_datasets(get_split_dataset, root):
 
 
 def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
-                     **extra):
+                     puts=None, **extra):
     """A JAX PixelNeRFTrainer on the SRN dataset at root with perturbed
     weights (every MLP weight and the encoder's BatchNorm moved off its
     init); ns source views a step."""
@@ -341,7 +350,8 @@ def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
     from pixelnerf_yolo_tpu.render import make_renderer
     from pixelnerf_yolo_tpu.train import make_trainer
 
-    conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std)
+    conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std,
+                           puts=puts)
     dset, val_dset = nerf_datasets(get_split_dataset, root)
     jm = make_model(conf.get_config("model"))
     jr = make_renderer(conf)
@@ -357,7 +367,7 @@ def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
 
 
 def port_nerf_trainer(root, tmp_path, variables, use_fused_mlp, ns,
-                      noise_std=0.0, **extra):
+                      noise_std=0.0, puts=None, **extra):
     """The port's PixelNeRFTrainer on the CPU with the JAX variables'
     weights."""
     from pixelnerf_yolo_torch.config.hocon import parse_string
@@ -367,7 +377,8 @@ def port_nerf_trainer(root, tmp_path, variables, use_fused_mlp, ns,
     from pixelnerf_yolo_torch.render import make_renderer
     from pixelnerf_yolo_torch.train import make_trainer
 
-    conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std)
+    conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std,
+                           puts=puts)
     dset, val_dset = nerf_datasets(get_split_dataset, root)
     model = make_model(conf.get_config("model"), device="cpu")
     model.load_state_dict(from_jax_variables(variables), strict=True)
