@@ -93,11 +93,32 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      loop on the flagship NeRF model over phase 9's scene at NS=1
      (full_pe) and NS=2 (pre_combine_pe + post_combine), bf16 and f32,
      kernel route against plain route (f32: PSNR within 1e-4 dB, SSIM
-     within 1e-6).
+     within 1e-6);
+ 12. serving modes (each mode's render time, median and spread of a few
+     renders, launches and peak memory printed): (a) the bf16 YOLO
+     flagship (16,384 rays) on the kernel route, the plain route with the
+     latent table pre-projected through lin_z (JAX's default there) and
+     the plain route without it, pairwise within YOLO_TOL, with their
+     chunk counts, and the gather at the one-hot form's rounding points on
+     the card within 1 bf16 ulp of the CPU's; (b) early_terminate on the
+     NeRF flagship (NS=1, 65,536 rays, bf16 and f32, kernel route): f = 1
+     bitwise the ungated render, f = 0.25 the kept rays' fine outputs
+     within RENDER_TOL of it, the rest's their coarse ones exactly, and
+     full_pe's fine launches on the gated rows; (c) model.latent_int8
+     (YOLO bf16 and f32, NeRF NS=1 bf16): kernel route against plain,
+     and within 0.05 x max(1, max|exact|) of the render without it (JAX's
+     own bound); (d) model.mlp_int8 (NeRF NS=1 bf16, plain route, no
+     launch): rgb within 0.12 of the bf16 render (JAX's bound), and the
+     int8 product's int32 accumulators on the card equal to the CPU's on
+     a 4,096 x 512 x 512 product; (e) SPADE (NeRF, f32, 1,024 rays): the
+     card within 1e-4 x max(1, max|cpu|) of the CPU, no launch; (f) the
+     bf16 YOLO flagship and NeRF NS=1 (16,384 rays each) exported with
+     serve.export_render, saved, loaded and run: bitwise the live render,
+     with its launches (above 0).
 The launch counters (per wrapper and per wrapper and variant) are zeroed
-just before each render path (3, 4, 5, 6) and each kernel-route training
-step (8, 9, 10) or evaluation (10, 11) and read just after it; a kernel
-of a path that never launched fails it.
+just before each render path (3, 4, 5, 6, 12) and each kernel-route
+training step (8, 9, 10) or evaluation (10, 11) and read just after it; a
+kernel of a path that never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -471,7 +492,8 @@ def yolo_scene(ns, size, seed=0):
 # -- models and renders --------------------------------------------------
 
 
-def build_models(device, out_scale=0.05, **conf_args):
+def build_models(device, out_scale=0.05, puts=None,
+                 dtypes=("bfloat16", "float32"), **conf_args):
     """The flagship model per compute dtype, weights from seed 0, and its
     renderer.  fc_1 gets small noise and lin_out is scaled by out_scale to
     put the outputs in their working range: in NeRF mode the hidden state
@@ -486,8 +508,10 @@ def build_models(device, out_scale=0.05, **conf_args):
     from pixelnerf_yolo_torch.render import make_renderer
 
     models = {}
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name in dtypes:
         conf = flagship_conf(compute_dtype=dtype_name, **conf_args)
+        for key, value in (puts or {}).items():
+            conf.put(key, value)
         model = make_model(conf.get_config("model"), device=device, seed=0)
         perturb_fc1(model, torch.Generator().manual_seed(2))
         with torch.no_grad():
@@ -2137,6 +2161,542 @@ def nerf_eval_path(device):
     return ok, launches, results
 
 
+# -- phase 12: serving modes ------------------------------------------------
+
+# renders timed a mode: the median and the spread (max - min) of SERVE_REPS
+# synchronized renders after the compared one (the modes that take
+# seconds, f32 and the int8 MLP: 1)
+SERVE_REPS = 3
+# early termination: the fraction of each chunk's rays given the fine pass
+GATE_F = 0.25
+# one-hot gather, card vs CPU: points sampled over the table and its border
+GATHER_POINTS = 4096
+# JAX's own bounds for the int8 modes against the exact render: the int8
+# latent table's rgb (tests/test_model_render.py TestLatentInt8, here on
+# every output, relative to max(1, max|exact|)) and the int8 MLP's rgb
+# (tests/test_quant.py)
+LATENT_INT8_TOL, MLP_INT8_RGB_TOL = 0.05, 0.12
+# SPADE, the card against the CPU: f32, 1e-4 x max(1, max|cpu|).  At
+# random init scale_z's scales have a std of ~25 (18-std latents through a
+# kaiming 512-wide layer) and widen the field ~1,000x (max 2,311 against
+# 2.35 without SPADE, measured on an H100), so the render carries f32's
+# rounding x 1,000 (7.0e-4 in rgb; the field itself 4.8e-6 relative, as
+# without SPADE): the field is compared at those weights, the render with
+# scale_z scaled by SPADE_SCALE (scales of std ~1), as build_models puts
+# lin_out in its working range
+SPADE_TOL, SPADE_RAYS, SPADE_SCALE = 1e-4, 1024, 1 / 25
+# the int8 product held to the CPU's
+W8A8_SHAPE = (4096, 512, 512)
+SERVE_RAYS = 16384  # YOLO and the exported renders; NeRF gating: RENDERS[0]
+
+
+def bf16_ulps(a, b):
+    """Largest |a - b| in bf16 units in the last place of max(|a|, |b|)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    m = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(m > 0, m,
+                                                       torch.ones_like(m))))
+                     - 7)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def timed(fn, reps: int):
+    """(first result, [seconds of reps more calls], peak GiB): synchronized
+    host-clock times of fn(), the peak memory over all of them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs, torch.cuda.max_memory_allocated() / 2**30
+
+
+def serve_line(label, secs, peak, launches, extra=""):
+    med = statistics.median(secs)
+    print(f"  {label}: {med:.4f} s median of {len(secs)} (spread "
+          f"{max(secs) - min(secs):.4f} s), peak {peak:.2f} GiB, launches "
+          f"{launches}{extra}", flush=True)
+    return {"median_s": med, "spread_s": max(secs) - min(secs),
+            "secs": secs, "peak_gib": peak, "launches": launches}
+
+
+def yolo_serve_render(model, renderer, device, fused, n_rays=SERVE_RAYS):
+    """(cond, rays, a function rendering them with fixed draws)."""
+    import torch
+
+    from pixelnerf_yolo_torch.utils.camera import gen_rays_yolo
+
+    model.use_fused_mlp = fused
+    images, poses, focal, c, target = yolo_scene(3, YOLO_SIZE)
+    with torch.no_grad():
+        cond = model.encode(images, poses, focal, c=c)
+    rays = gen_rays_yolo(torch.from_numpy(target).to(device), YOLO_SIZE,
+                         YOLO_SIZE, focal[0], c[0], YOLO_NEAR,
+                         YOLO_FAR).reshape(1, -1, 8)[:, :n_rays]
+    u = torch.rand((n_rays, renderer.n_coarse), device=device,
+                   generator=torch.Generator(device=device).manual_seed(3))
+    return cond, rays, lambda: renderer(model, cond, rays, u=u)
+
+
+def serve_yolo(models, device, results):
+    """Phase 12 (a): the bf16 YOLO flagship on the kernel route, the plain
+    route with the pre-projected table and the plain route without it;
+    the one-hot gather on the card against the CPU."""
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+    from pixelnerf_yolo_torch.ops.grid_sample import grid_sample_nhwc
+
+    model, renderer = models["bfloat16"]
+    outs, ok, launches = {}, True, {}
+    for label, fused, pre in (("kernel", "auto", True),
+                              ("plain_preprojected", "false", True),
+                              ("plain_raw", "false", False)):
+        model.latent_preproject = pre
+        fm.reset_launches()
+        cond, rays, fn = yolo_serve_render(model, renderer, device, fused)
+        out, secs, peak = timed(fn, SERVE_REPS)
+        lk = dict(fm.variant_launches)
+        n = SERVE_RAYS
+        cb = renderer.chunk_rays_for(n, 3, cond.latent_flat.shape[-1])
+        chunks = -(-n // cb)
+        results[f"yolo_{label}"] = serve_line(
+            f"YOLO NS=3 bf16 {n} rays, {label}", secs, peak, lk,
+            f"; table {tuple(cond.latent_flat.shape)}, projected "
+            f"{cond.latent_projected}, {chunks} chunks of "
+            f"{-(-n // chunks)} rays")
+        results[f"yolo_{label}"]["chunks"] = chunks
+        want_kernels = fused == "auto"
+        good = (cond.latent_projected == (pre and not want_kernels)
+                and (launched(lk, "pre_combine_pe", "tensor_core") > 0
+                     and launched(lk, "post_combine", "tensor_core") > 0)
+                == want_kernels and (want_kernels or sum(lk.values()) == 0))
+        if not good:
+            print(f"FAILED: the {label} route's table or launches")
+        ok &= good
+        launches[f"serve_yolo_{label}"] = lk
+        outs[label] = out
+    model.latent_preproject = True
+    for a, b in (("kernel", "plain_preprojected"), ("kernel", "plain_raw"),
+                 ("plain_preprojected", "plain_raw")):
+        print(f"  {a} vs {b}:")
+        ok &= compare_yolo(outs[a], outs[b], YOLO_TOL["bfloat16"])
+    # the gather at the one-hot rounding points: the card against the CPU
+    table = cond.latent_flat  # the raw bf16 table (plain_raw's)
+    Hl, Wl = cond.latent_hw
+    g = torch.Generator().manual_seed(4)
+    grid = (torch.rand((table.shape[0], GATHER_POINTS, 2), generator=g)
+            * 2.4 - 1.2)
+    got = grid_sample_nhwc(table, grid.to(device), Hl, Wl,
+                           padding_mode="border", align_corners=True,
+                           interp_matmul=True).float().cpu()
+    ref = grid_sample_nhwc(table.cpu(), grid, Hl, Wl, padding_mode="border",
+                           align_corners=True, interp_matmul=True).float()
+    ulps = bf16_ulps(got, ref)
+    good = ulps <= 1 and Hl * Wl <= 1024 and bool(torch.isfinite(got).all())
+    print(f"  one-hot gather, {Hl * Wl}-row table x {table.shape[-1]}, "
+          f"{GATHER_POINTS} points a view: card vs CPU {ulps:.1f} bf16 ulp "
+          f"(limit 1) {'ok' if good else 'FAILED'}", flush=True)
+    results["yolo_gather_ulps"] = ulps
+    del outs, cond
+    torch.cuda.empty_cache()
+    return ok & good, launches
+
+
+def serve_gate(models, device, results):
+    """Phase 12 (b): early_terminate on the NeRF flagship, NS=1, kernel
+    route, bf16 and f32: f = 1 bitwise the ungated render; f = GATE_F the
+    kept rays' fine outputs within RENDER_TOL of the ungated render, the
+    others' fine outputs their coarse ones exactly, full_pe's fine
+    launches on the gated rows."""
+    import dataclasses as dc
+
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    ok, launches = True, {}
+    n = RENDERS[0][2]
+    for dtype_name in ("bfloat16", "float32"):
+        model, renderer = models[dtype_name]
+        model.use_fused_mlp = "auto"
+        images, poses, focal, rays = flagship_scene(1, n, device)
+        with torch.no_grad():
+            cond = model.encode(images, poses, focal)
+        cb = renderer._chunk_rays(n, 1)  # rays a chunk; fine-pass rays:
+        cc = dc.replace(renderer, early_terminate=GATE_F)._gated_capacity(cb)
+        nc = -(-n // cb)
+        draws = renderer.draw(nc * cb, torch.Generator(device=device)
+                              .manual_seed(3), device)
+        outs = {}
+        for f in (0.0, 1.0, GATE_F):
+            # f = 1 is compared, not timed
+            reps = (0 if f == 1.0 else SERVE_REPS if dtype_name == "bfloat16"
+                    else 1)
+            r = dc.replace(renderer, early_terminate=f)
+            rows = []
+            full_pe = fm.full_pe
+
+            def counting(base, latent, w, code, _f=full_pe):
+                rows.append(latent.shape[0])
+                return _f(base, latent, w, code)
+
+            fm.reset_launches()
+            fm.full_pe = counting
+            try:
+                out, secs, peak = timed(
+                    lambda: r(model, cond, rays, draws=draws,
+                              want_weights=True), reps)
+            finally:
+                fm.full_pe = full_pe
+            lk = dict(fm.variant_launches)
+            launches[f"serve_gate_{f}_{dtype_name}"] = lk
+            outs[f] = out
+            per_render = rows[:len(rows) // (reps + 1)]
+            if reps:
+                results[f"gate_{f}_{dtype_name}"] = serve_line(
+                    f"NeRF NS=1 {dtype_name} {n} rays, early_terminate {f}",
+                    secs, peak, lk, f"; full_pe rows a render {per_render}")
+            if f == GATE_F:
+                want = [cb * renderer.n_coarse,
+                        cc * (renderer.n_coarse + renderer.n_fine)] * nc
+                good = per_render == want
+                print(f"  full_pe rows: coarse {cb} x {renderer.n_coarse}, "
+                      f"fine {cc} x {renderer.n_coarse + renderer.n_fine} "
+                      f"a chunk ({nc} chunks): "
+                      f"{'ok' if good else 'FAILED, want ' + str(want)}")
+                ok &= good
+        base, one, gated = outs[0.0], outs[1.0], outs[GATE_F]
+        same = all(torch.equal(one[p][k], base[p][k])
+                   for p in ("coarse", "fine")
+                   for k in ("rgb", "depth", "weights"))
+        # the kept rays: each chunk's top cc by coarse weight sum
+        wsum = base["coarse"]["weights"][0].sum(-1)
+        pad = nc * cb - n
+        wsum = torch.cat([wsum, wsum[:1].expand(pad)]).reshape(nc, cb)
+        idx = torch.sort(wsum, dim=1, descending=True,
+                         stable=True).indices[:, :cc]
+        kept = torch.zeros((nc, cb), dtype=torch.bool, device=device)
+        kept[torch.arange(nc, device=device)[:, None], idx] = True
+        kept = kept.reshape(-1)[:n]
+        tol = RENDER_TOL[dtype_name]
+        if nc * cb != n:  # the padded rays' weights are not in the output
+            print(f"FAILED: {n} rays do not split into chunks of {cb}")
+            ok = False
+        d_kept = max((gated["fine"][k][0][kept] - base["fine"][k][0][kept])
+                     .abs().max().item() for k in ("rgb", "depth"))
+        skipped_exact = all(torch.equal(gated["fine"][k][0][~kept],
+                                        gated["coarse"][k][0][~kept])
+                            for k in ("rgb", "depth"))
+        good = same and d_kept <= tol and skipped_exact and bool(
+            torch.isfinite(gated["fine"]["rgb"]).all())
+        print(f"  {dtype_name}: f=1 bitwise ungated {same}; f={GATE_F}: "
+              f"{int(kept.sum())} of {n} rays kept, their fine max|diff| "
+              f"{d_kept:.3e} (tol {tol}), the rest's fine == coarse "
+              f"{skipped_exact} {'ok' if good else 'FAILED'}", flush=True)
+        ok &= good
+        del outs, base, one, gated, cond
+        torch.cuda.empty_cache()
+    return ok, launches
+
+
+def serve_int8(nerf, yolo, device, results):
+    """Phase 12 (c), (d): model.latent_int8 (YOLO bf16 and f32, NeRF NS=1
+    bf16: kernel route against plain route, and against the render
+    without int8) and model.mlp_int8 (NeRF NS=1 bf16, plain route: no
+    kernel launch; rgb against the bf16 render; the int8 product on the
+    card against the CPU's)."""
+    import torch
+
+    from pixelnerf_yolo_torch.nn import quant
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    ok, launches = True, {}
+
+    def nerf_fn(model, renderer, fused):
+        model.use_fused_mlp = fused
+        n = RENDERS[0][2]
+        images, poses, focal, rays = flagship_scene(1, n, device)
+        with torch.no_grad():
+            cond = model.encode(images, poses, focal)
+        draws = renderer.draw(n, torch.Generator(device=device)
+                              .manual_seed(3), device)
+        return cond, lambda: renderer(model, cond, rays, draws=draws)
+
+    def yolo_fn(model, renderer, fused):
+        cond, _, fn = yolo_serve_render(model, renderer, device, fused)
+        return cond, fn
+
+    def run(label, model, renderer, make, fused, reps):
+        """One render compared, reps more timed (none: untimed)."""
+        fm.reset_launches()
+        cond, fn = make(model, renderer, fused)
+        out, secs, peak = timed(fn, reps)
+        lk = dict(fm.variant_launches)
+        launches[f"serve_{label}"] = lk
+        if reps:
+            results[label] = serve_line(label, secs, peak, lk,
+                                        f"; table {cond.latent_flat.dtype}")
+        return out, cond, lk
+
+    def nerf_diff(a, b, keys=("rgb", "depth")):
+        return max((a[p][k].float() - b[p][k].float()).abs().max().item()
+                   for p in ("coarse", "fine") for k in keys)
+
+    for mode, dtype_name, models, make in (
+            ("yolo", "bfloat16", yolo, yolo_fn),
+            ("yolo", "float32", yolo, yolo_fn),
+            ("nerf", "bfloat16", nerf, nerf_fn)):
+        model, renderer = models[dtype_name]
+        reps = 1 if mode == "yolo" and dtype_name == "float32" else SERVE_REPS
+        model.latent_int8 = False
+        exact, _, _ = run(f"{mode}_exact_{dtype_name}", model, renderer,
+                          make, "auto", 0)
+        model.latent_int8 = True
+        try:
+            k8, cond, lk = run(f"{mode}_latent_int8_kernel_{dtype_name}",
+                               model, renderer, make, "auto", reps)
+            p8, _, lp = run(f"{mode}_latent_int8_plain_{dtype_name}", model,
+                            renderer, make, "false", reps)
+        finally:
+            model.latent_int8 = False
+        first = "pre_combine_pe" if mode == "yolo" else "full_pe"
+        good = (cond.latent_flat.dtype == torch.int8
+                and launched(lk, first) > 0 and sum(lp.values()) == 0)
+        tol = YOLO_TOL[dtype_name] if mode == "yolo" else RENDER_TOL[
+            dtype_name]
+        if mode == "yolo":
+            print("  int8 table, kernel vs plain:")
+            good &= compare_yolo(k8, p8, tol)
+            scale = max(1.0, exact.abs().max().item())
+            d_exact = (k8 - exact).abs().max().item()
+        else:
+            d = nerf_diff(k8, p8)
+            print(f"  int8 table, kernel vs plain max|diff| {d:.3e} "
+                  f"(tol {tol})")
+            good &= d <= tol
+            scale = max(1.0, max(exact[p]["rgb"].abs().max().item()
+                                 for p in ("coarse", "fine")))
+            d_exact = nerf_diff(k8, exact, ("rgb",))
+        near = d_exact <= LATENT_INT8_TOL * scale
+        print(f"  int8 table vs exact ({mode} {dtype_name}) max|diff| "
+              f"{d_exact:.3e} (tol {LATENT_INT8_TOL * scale:.3e}) "
+              f"{'ok' if good and near else 'FAILED'}", flush=True)
+        results[f"{mode}_latent_int8_{dtype_name}_vs_exact"] = d_exact
+        ok &= good and near
+        del exact, k8, p8, cond
+        torch.cuda.empty_cache()
+
+    # (d) mlp_int8: NeRF NS=1 bf16, plain route
+    model, renderer = nerf["bfloat16"]
+    plain, _, _ = run("nerf_plain_bfloat16", model, renderer, nerf_fn,
+                      "false", SERVE_REPS)
+    model.mlp_int8 = True
+    try:
+        q, cond, lq = run("nerf_mlp_int8_bfloat16", model, renderer, nerf_fn,
+                          "auto", 1)
+    finally:
+        model.mlp_int8 = False
+    d_rgb = nerf_diff(q, plain, ("rgb",))
+    good = (cond.mlp_int8 and sum(lq.values()) == 0
+            and all(bool(torch.isfinite(q[p][k]).all())
+                    for p in ("coarse", "fine") for k in ("rgb", "depth"))
+            and d_rgb < MLP_INT8_RGB_TOL)
+    print(f"  mlp_int8 (use_fused_mlp auto, so the plain route: 0 launches) "
+          f"rgb vs bf16 plain max|diff| {d_rgb:.3e} (limit "
+          f"{MLP_INT8_RGB_TOL}); {results['nerf_mlp_int8_bfloat16']['median_s']:.4f}"
+          f" s against {results['nerf_plain_bfloat16']['median_s']:.4f} s "
+          f"{'ok' if good else 'FAILED'}", flush=True)
+    ok &= good
+    results["mlp_int8_rgb_vs_bf16"] = d_rgb
+    M, K, N = W8A8_SHAPE
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((M, K), generator=g)
+    w = torch.randn((K, N), generator=g)
+    xq, _ = quant.quantize_rows(x)
+    wq, _ = quant.quantize_cols(w)
+    acc_card = quant.int_mm(xq.to(device), wq.to(device)).cpu()
+    acc_cpu = quant.int_mm(xq, wq)
+    same_acc = torch.equal(acc_card, acc_cpu)
+    same_out = torch.equal(quant.dot_w8a8(x.to(device), w.to(device)).cpu(),
+                           quant.dot_w8a8(x, w))
+    print(f"  dot_w8a8 {M}x{K}x{N}: int32 accumulators card == CPU "
+          f"{same_acc}; f32 result card == CPU {same_out} "
+          f"{'ok' if same_acc else 'FAILED'}", flush=True)
+    results["w8a8_exact"] = (same_acc, same_out)
+    ok &= same_acc
+    del plain, q, cond
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def serve_spade(device, results):
+    """Phase 12 (e): the NeRF flagship with SPADE (f32, SPADE_RAYS rays),
+    the card against the same model on the CPU, no kernel launch: the
+    field at 16 depths of each ray with the random weights, then the
+    render with scale_z in its working range (SPADE_SCALE)."""
+    import copy
+
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    model, renderer = build_models(
+        device, puts={"model.mlp_coarse.use_spade": True,
+                      "model.mlp_fine.use_spade": True},
+        dtypes=("float32",))["float32"]
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_r = dataclasses.replace(renderer, device="cpu")
+    images, poses, focal, rays = flagship_scene(1, SPADE_RAYS, device)
+    z = torch.linspace(0.8, 1.8, 16, device=device)
+    pts = (rays[0, :, None, :3] + z[:, None] * rays[0, :, None, 3:6])
+    pts = pts.reshape(1, -1, 3)
+    vd = rays[0, :, None, 3:6].expand(-1, 16, 3).reshape(1, -1, 3)
+    draws = renderer.draw(SPADE_RAYS, torch.Generator().manual_seed(3),
+                          "cpu")
+    fm.reset_launches()
+    ok, worst = True, {}
+    for stage in ("field", "render"):
+        if stage == "render":
+            with torch.no_grad():
+                for m in (model, cpu_model):
+                    for lin in (*m.mlp_coarse.scale_z, *m.mlp_fine.scale_z):
+                        lin.weight.mul_(SPADE_SCALE)
+        with torch.no_grad():
+            cond = model.encode(images, poses, focal)
+            cpu_cond = cpu_model.encode(images, poses, focal)
+            if stage == "field":
+                pairs = [(model.forward(cond, pts, coarse=c, viewdirs=vd),
+                          cpu_model.forward(cpu_cond, pts.cpu(), coarse=c,
+                                            viewdirs=vd.cpu()))
+                         for c in (True, False)]
+            else:
+                out = renderer(model, cond, rays, draws=draws)
+                ref = cpu_r(cpu_model, cpu_cond, rays.cpu(), draws=draws)
+                pairs = [(out[p][k], ref[p][k]) for p in ("coarse", "fine")
+                         for k in ("rgb", "depth")]
+        worst[stage] = 0.0
+        for a, b in pairs:
+            d = (a.cpu() - b).abs().max().item()
+            scale = max(1.0, b.abs().max().item())
+            worst[stage] = max(worst[stage], d / scale)
+            ok &= bool(torch.isfinite(a).all()) and d <= SPADE_TOL * scale
+    lk = dict(fm.variant_launches)
+    ok &= sum(lk.values()) == 0
+    print(f"SPADE NeRF NS=1 f32: card vs CPU, the field at {pts.shape[1]} "
+          f"points {worst['field']:.3e} of max(1, max|cpu|), the render "
+          f"of {SPADE_RAYS} rays (scale_z x {SPADE_SCALE:.3g}) "
+          f"{worst['render']:.3e} (tol {SPADE_TOL}); launches {lk} "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    results["spade_card_vs_cpu"] = worst
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return ok, {"serve_spade": lk}
+
+
+def serve_export(nerf, yolo, device, results):
+    """Phase 12 (f): serve.export_render of the bf16 YOLO flagship and the
+    bf16 NeRF flagship at NS=1 (SERVE_RAYS rays each), saved, loaded and
+    run: bitwise the live render, with the live render's launches."""
+    import torch
+
+    from pixelnerf_yolo_torch import serve
+    from pixelnerf_yolo_torch.config.flagship import flagship_conf
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    ok, launches = True, {}
+    for label, models, conf_args in (
+            ("yolo", yolo, dict(yolo=True, backbone="custom")),
+            ("nerf", nerf, {})):
+        model, _ = models["bfloat16"]
+        model.use_fused_mlp = "auto"
+        conf = flagship_conf(compute_dtype="bfloat16", **conf_args)
+        fn, _ = serve.build_render_fn(conf, model)
+        g = torch.Generator(device=device).manual_seed(6)
+        if label == "yolo":
+            _, rays, _ = yolo_serve_render(model, models["bfloat16"][1],
+                                           device, "auto")
+            images, poses, focal = yolo_scene(3, YOLO_SIZE)[:3]
+        else:
+            images, poses, focal, rays = flagship_scene(1, SERVE_RAYS,
+                                                        device)
+        images, poses, focal = (torch.as_tensor(x).to(device)
+                                for x in (images, poses, focal))
+        args = (images, poses, focal, rays,
+                *serve.make_draws(fn, images, rays, g))
+        t0 = time.perf_counter()
+        blob = serve.export_render(conf, model, args)
+        t1 = time.perf_counter()
+        call, header = serve.load_render(blob)
+        t2 = time.perf_counter()
+        fm.reset_launches()
+        with torch.no_grad():
+            live, live_secs, _ = timed(lambda: fn(*args), SERVE_REPS)
+        live_launches = {k: v // (SERVE_REPS + 1)
+                         for k, v in fm.variant_launches.items()}
+        fm.reset_launches()
+        got, secs, peak = timed(lambda: call(*args), SERVE_REPS)
+        loaded = {k: v // (SERVE_REPS + 1)
+                  for k, v in fm.variant_launches.items()}
+        leaves = ([live] if isinstance(live, torch.Tensor) else
+                  [live[p][k] for p in live for k in live[p]])
+        got_leaves = ([got] if isinstance(got, torch.Tensor) else
+                      [got[p][k] for p in got for k in got[p]])
+        same = len(leaves) == len(got_leaves) and all(
+            torch.equal(a, b) for a, b in zip(leaves, got_leaves))
+        good = (same and sum(loaded.values()) > 0 and loaded == live_launches
+                and sum(v % (SERVE_REPS + 1)
+                        for v in fm.variant_launches.values()) == 0)
+        launches[f"serve_export_{label}"] = loaded
+        results[f"export_{label}"] = serve_line(
+            f"exported {label} bf16 {SERVE_RAYS} rays", secs, peak, loaded,
+            f"; artifact {len(blob) / 2**20:.1f} MiB, export {t1 - t0:.1f} s,"
+            f" load {t2 - t1:.1f} s; the live render "
+            f"{statistics.median(live_secs):.4f} s")
+        print(f"  loaded program == live render bitwise: {same}; launches "
+              f"loaded {loaded} live {live_launches} "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+        ok &= good
+        del blob, call, live, got
+        torch.cuda.empty_cache()
+    return ok, launches
+
+
+def serving_path(device):
+    """Phase 12: the serving modes.  Returns (ok, launches by path,
+    results)."""
+    import torch
+
+    t0 = time.perf_counter()
+    results, launches = {}, {}
+    nerf = build_models(device)
+    yolo = build_models(device, out_scale=1.0, yolo=True, backbone="custom")
+    ok = True
+    for step in (lambda: serve_yolo(yolo, device, results),
+                 lambda: serve_gate(nerf, device, results),
+                 lambda: serve_int8(nerf, yolo, device, results),
+                 lambda: serve_export(nerf, yolo, device, results)):
+        good, lk = step()
+        ok &= good
+        launches.update(lk)
+    del nerf, yolo
+    torch.cuda.empty_cache()
+    good, lk = serve_spade(device, results)
+    ok &= good
+    launches.update(lk)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok, launches, results
+
+
 def main() -> int:
     import torch
 
@@ -2163,7 +2723,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-11; prints the kernels line; True when every check held."""
+    """Phases 2-12; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -2259,12 +2819,15 @@ def run(device) -> bool:
     ok &= eok
     print(f"phase 10: {t11 - t10:.1f} s; phase 11: "
           f"{time.perf_counter() - t11:.1f} s", flush=True)
+    sok, serve_launches, _ = serving_path(device)
+    ok &= sok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
              "train_step": train_launches["bfloat16"],
              "train_step_f32": train_launches["float32"],
-             **nerf_train_launches, **ms_launches, **eval_launches}
+             **nerf_train_launches, **ms_launches, **eval_launches,
+             **serve_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

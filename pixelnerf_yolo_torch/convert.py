@@ -11,6 +11,7 @@ reference PixelNeRFNet key names, so that the JAX package's
   .../{downsample_conv, BatchNorm_2}        -> ....downsample.{0, 1}
   mlp_*/lin_in, lin_out, lin_z_N, block_N   -> mlp_*.lin_in, lin_out,
                                                lin_z.N, blocks.N
+  mlp_*/scale_z_N (SPADE)                   -> mlp_*.scale_z.N
 The custom ELAN backbone has no reference key names (the reference's
 external YOLOv7 is not vendored), so its port modules carry the flax names
 and a flax path maps onto its key by joining it with dots:
@@ -96,8 +97,8 @@ def resnetfc_state_dict(params: dict, prefix: str = "") -> dict:
     for name, p in params.items():
         if name in ("lin_in", "lin_out"):
             _dense(sd, prefix + name, p)
-        elif m := re.fullmatch(r"lin_z_(\d+)", name):
-            _dense(sd, f"{prefix}lin_z.{m[1]}", p)
+        elif m := re.fullmatch(r"(lin_z|scale_z)_(\d+)", name):
+            _dense(sd, f"{prefix}{m[1]}.{m[2]}", p)
         elif m := re.fullmatch(r"block_(\d+)", name):
             for leaf, lp in p.items():
                 _dense(sd, f"{prefix}blocks.{m[1]}.{leaf}", lp)

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..nn.resnet import STAGE_WIDTHS, ResNetFeatures
-from ..ops.grid_sample import grid_sample_nhwc
+from ..ops.grid_sample import grid_sample_nhwc, grid_sample_nhwc_q8
 from ..ops.resize import resize_bilinear
 from .yolo_backbone import YOLO_BACKBONE_LATENT, YOLOBackbone
 
@@ -90,27 +90,45 @@ def latent_scaling_of(latent_hw: tuple[int, int], device=None) -> torch.Tensor:
 def index_latent(latent_flat: torch.Tensor, latent_hw: tuple[int, int],
                  uv: torch.Tensor, image_size: torch.Tensor | None,
                  index_interp: str = "bilinear",
-                 index_padding: str = "border") -> torch.Tensor:
+                 index_padding: str = "border",
+                 scales: torch.Tensor | None = None,
+                 nan_scrub_ok: bool = False) -> torch.Tensor:
     """Pixel-aligned feature lookup.
 
-    :param latent_flat (B, Hl*Wl, C)
+    :param latent_flat (B, Hl*Wl, C), int8 when ``scales`` is given
+      (model.latent_int8: ``grid_sample_nhwc_q8``, bf16 out)
     :param uv (B, N, 2) pixel coords (x, y) in image space, or already in
       [-1, 1] when image_size is None
     :param image_size (W, H) of the images the uv are expressed in
+    :param nan_scrub_ok the caller zeroes NaN latents anyway (the YOLO
+      path), so a small bf16 table may take the one-hot form's rounding
+      points (``interp_matmul``), which zero NaN table entries
     :return (B, N, C)
-
-    Always the 4-corner gather: the JAX package's one-hot matmul form for
-    small bf16 tables on the YOLO path (``nan_scrub_ok``) is not ported
-    (ROADMAP.md Queue 1 item 19).
     """
     if image_size is not None:
         uv = uv * (latent_scaling_of(latent_hw, uv.device) / image_size) - 1.0
+    if scales is not None:
+        if index_interp.strip() != "bilinear":
+            raise NotImplementedError(
+                "model.latent_int8 serving mode only implements "
+                f"bilinear sampling; conf index_interp={index_interp!r}."
+                " Disable latent_int8 or use index_interp=bilinear."
+            )
+        return grid_sample_nhwc_q8(latent_flat, scales, uv, latent_hw[0],
+                                   latent_hw[1], padding_mode=index_padding,
+                                   align_corners=True)
+    # the JAX package's condition for its one-hot matmul form
+    interp_matmul = (nan_scrub_ok
+                     and latent_hw[0] * latent_hw[1] <= 1024
+                     and latent_flat.dtype == torch.bfloat16
+                     and index_interp.strip() == "bilinear")
     return grid_sample_nhwc(
         latent_flat, uv, latent_hw[0], latent_hw[1],
         # "nearest " (trailing space) still samples nearest, align_corners on
         mode=index_interp.strip(),
         padding_mode=index_padding,
         align_corners=True,
+        interp_matmul=interp_matmul,
     )
 
 

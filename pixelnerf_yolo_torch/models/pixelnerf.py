@@ -31,6 +31,17 @@ its activations (``torch.utils.checkpoint``, non-reentrant);
 (``_resolve_remat_policy``)
 and ``model.remat_gather`` moves the latent gather inside it.
 
+Serving modes (inference only; ``encode(train=True)`` turns the int8 ones
+off): ``model.latent_int8`` quantizes the latent table per channel to int8
+(``grid_sample_nhwc_q8`` gathers it, bf16 out); ``model.mlp_int8`` runs the
+ResnetFC's hidden layers through the dynamic int8 product (plain route
+only); in bf16 with one MLP the latent table is pre-projected through the
+lin_z weights at encode time (``model.latent_preproject``, default true)
+unless the field takes the kernel route, whose kernels take the raw
+latent (``_preprojects``).  In YOLO mode a bf16 table of at most 1024 rows
+is gathered at the JAX package's one-hot rounding points
+(``index_latent(nan_scrub_ok=True)``).
+
 ``encoder.pretrained = True`` grafts torchvision's ImageNet weights over a
 ResNet encoder's random init (nn/pretrained.py); without the npz it warns
 and keeps the random init, or raises when ``PNY_PRETRAINED_STRICT`` is
@@ -48,12 +59,14 @@ import warnings
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..nn.code import PositionalEncoding
 from ..nn.resnetfc import ResnetFC, block_out_contexts
 from ..ops import field_mlp
+from ..ops.grid_sample import quantize_rows_int8
 from ..utils.indexing import repeat_interleave
 from .encoder import index_latent, make_encoder
 
@@ -117,15 +130,18 @@ class CondState:
     c: torch.Tensor  # (F, 2)
     image_size: torch.Tensor  # (2,) = (W, H) of the encoder's input images
     num_views_per_obj: int
+    # model.latent_int8 (inference): latent_flat is int8 and these are its
+    # per-channel scales
+    latent_scales: Optional[torch.Tensor] = None  # (C,)
+    # latent_flat holds the table projected through mlp_coarse's lin_z
+    # weights (C = n_lin_z * d_hidden); the biases come after the gather
+    latent_projected: bool = False
+    # model.mlp_int8 (inference): the field's hidden layers in int8
+    mlp_int8: bool = False
 
 
 _UNPORTED = {
     "use_global_encoder": "the global encoder",
-    "latent_int8": "model.latent_int8 (ROADMAP.md Queue 1 item 19)",
-    "mlp_int8": "model.mlp_int8 (ROADMAP.md Queue 1 item 19)",
-    # the JAX package pre-projects by default in bf16 YOLO mode; the port
-    # never does, and refuses only a conf that asks for it by name
-    "latent_preproject": "model.latent_preproject (ROADMAP.md Queue 1 item 19)",
 }
 
 
@@ -190,6 +206,17 @@ class PixelNeRF(nn.Module):
         if self.use_viewdirs and not self.use_code_viewdirs:
             d_in += 3
 
+        self.latent_int8 = conf.get_bool("latent_int8", False)
+        self.mlp_int8 = conf.get_bool("mlp_int8", False)
+        if self.mlp_int8 and not (
+                conf.get_string("mlp_coarse.type", "mlp") == "resnet"
+                and conf.get_string("mlp_fine.type", "mlp")
+                in ("resnet", "empty")):
+            raise ValueError(
+                "model.mlp_int8 requires ResnetFC MLPs "
+                "(mlp_coarse/mlp_fine type 'resnet')"
+            )
+        self.latent_preproject = conf.get_bool("latent_preproject", True)
         self.mlp_coarse = make_mlp(conf.get_config("mlp_coarse"), d_in,
                                    d_latent, dtype=self.compute_dtype,
                                    generator=generator)
@@ -220,7 +247,7 @@ class PixelNeRF(nn.Module):
         :param c None or (2,) or (SB, 2)
         :param train BatchNorm on the batch's statistics, updating the
           running ones (not with stop_encoder_grad, which also detaches the
-          latent)
+          latent); the int8 serving modes off
         """
         dev = self.device
         f32 = torch.float32
@@ -241,6 +268,19 @@ class PixelNeRF(nn.Module):
             latent = self.encoder(x, train=train)
         B, Hl, Wl, C = latent.shape
         latent_flat = latent.reshape(B, Hl * Wl, C).to(self.compute_dtype)
+        latent_scales = None
+        if self.latent_int8 and not train:
+            latent_flat, latent_scales = quantize_rows_int8(latent_flat)
+        latent_projected = self._preprojects(num_views_per_obj)
+        if latent_projected:
+            # bilinear interpolation commutes with the lin_z product: the
+            # table is projected once (the lin_z weights still get their
+            # gradient through it; a frozen encoder's table is detached)
+            mlp = self.mlp_coarse
+            w_cat = torch.cat([m.weight for m in mlp.lin_z])
+            lat = latent_flat.detach() if self.stop_encoder_grad \
+                else latent_flat
+            latent_flat = F.linear(lat, w_cat.to(self.compute_dtype))
 
         if self.yolo:
             w2c = poses[:, :3, :4]
@@ -271,8 +311,36 @@ class PixelNeRF(nn.Module):
         return CondState(
             latent_flat=latent_flat, latent_hw=(Hl, Wl), poses=w2c,
             focal=focal, c=c, image_size=image_size,
-            num_views_per_obj=num_views_per_obj,
+            num_views_per_obj=num_views_per_obj, latent_scales=latent_scales,
+            latent_projected=latent_projected,
+            mlp_int8=self.mlp_int8 and not train,
         )
+
+    def _preprojects(self, ns: int) -> bool:
+        """Whether encode pre-projects the latent table through
+        mlp_coarse's lin_z weights: the JAX package's rule (bf16, one
+        ResnetFC MLP with a latent and a block before the combine, no SPADE,
+        no int8 table, ``model.latent_preproject``), with its clause
+        "``use_fused_mlp`` not true" read as "the field does not take the
+        kernel route at this NS": the kernels take the raw latent."""
+        mlp = self.mlp_coarse
+        return bool(
+            self.compute_dtype == torch.bfloat16
+            and self.mlp_fine is None
+            and isinstance(mlp, ResnetFC)
+            and mlp.d_latent > 0
+            and mlp.n_lin_z > 0
+            and not mlp.use_spade
+            and not self.latent_int8
+            and self.latent_preproject
+            and not self._fuses(mlp, ns)
+        )
+
+    def latent_width(self, ns: int) -> int:
+        """The width of ``encode``'s latent table at ns source views."""
+        if self._preprojects(ns):
+            return self.mlp_coarse.n_lin_z * self.mlp_coarse.d_hidden
+        return self.d_latent
 
     # -- the field -----------------------------------------------------------
 
@@ -288,6 +356,7 @@ class PixelNeRF(nn.Module):
             enabled
             and isinstance(mlp, ResnetFC)
             and mlp.beta == 0
+            and not mlp.use_spade
             and mlp.combine_type == "average"
             and mlp.d_latent > 0
             and self.d_in > 0
@@ -296,6 +365,13 @@ class PixelNeRF(nn.Module):
                                    self.compute_dtype, m, mlp.d_out)
                     for m in (mode, "post_combine"))
         )
+
+    def _fuses(self, mlp, ns: int) -> bool:
+        """Whether the field of ``mlp`` takes the kernel route at ns source
+        views: ``_can_fuse`` for the route's first kernel, and no
+        ``model.mlp_int8`` (the kernels have no int8 path)."""
+        return not self.mlp_int8 and self._can_fuse(
+            mlp, ns, self._first_kernel(mlp, ns, self._pe_fusible()))
 
     @staticmethod
     def _first_kernel(mlp, ns: int, pe_fusible: bool) -> str:
@@ -334,7 +410,10 @@ class PixelNeRF(nn.Module):
         sample the pixel-aligned latent.
 
         :param xyz (SB, B, 3) world points
-        :return (SB*NS, B, C) latents (YOLO: zeroed behind z = 0 and NaN)
+        :return (SB*NS, B, C) latents (YOLO: zeroed behind z = 0 and NaN;
+          C = n_lin_z * d_hidden when the table is pre-projected, and the
+          zeroed rows then get exactly the lin_z biases, as zeroed latents
+          do; bf16 from an int8 table)
         """
         NS = cond.num_views_per_obj
         _, xyz_cam = self._to_camera(cond, xyz)
@@ -359,6 +438,10 @@ class PixelNeRF(nn.Module):
             cond.latent_flat, cond.latent_hw, uv, cond.image_size,
             index_interp=self.encoder.index_interp,
             index_padding=self.encoder.index_padding,
+            scales=cond.latent_scales,
+            # YOLO zeroes NaN latents below, so the one-hot form's zeroing
+            # of NaN table entries is admissible there (and only there)
+            nan_scrub_ok=self.yolo,
         )
         if self.yolo:
             zero = torch.zeros((), dtype=latent.dtype, device=latent.device)
@@ -400,10 +483,9 @@ class PixelNeRF(nn.Module):
         NS = cond.num_views_per_obj
         use_fine = not coarse and self.mlp_fine is not None
         mlp = self.mlp_fine if use_fine else self.mlp_coarse
-        pe_fusible = self._pe_fusible()
-        fuse = self._can_fuse(mlp, NS, self._first_kernel(mlp, NS,
-                                                          pe_fusible))
-        fuse_pe = fuse and pe_fusible
+        # the kernels take the raw latent, never a pre-projected table
+        fuse = not cond.latent_projected and self._fuses(mlp, NS)
+        fuse_pe = fuse and self._pe_fusible()
 
         xyz_rot, xyz_cam = self._to_camera(cond, xyz)
         vd = None
@@ -443,7 +525,9 @@ class PixelNeRF(nn.Module):
                 # concatenated in f32, cast to the compute dtype by the MLP
                 mlp_input = torch.cat([latent.float(), z_feature.float()],
                                       dim=-1)
-                out = mlp(mlp_input, combine_inner_dims=(NS, B))
+                out = mlp(mlp_input, combine_inner_dims=(NS, B),
+                          latent_projected=cond.latent_projected,
+                          int8=cond.mlp_int8)
         out = out.reshape(-1, B, self.d_out)
         if self.yolo:
             return out

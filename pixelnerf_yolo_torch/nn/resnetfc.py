@@ -13,6 +13,14 @@ then the bias (cast to the compute dtype) is added.  lin_out runs in f32.
 
 Each block's output is the save point of the "block" remat policy
 (``block_out``); the fused kernels have none.
+
+Serving modes: ``forward(latent_projected=True)`` takes the latent part
+already projected through the lin_z weights (the model pre-projects the
+latent table) and adds each block's lin_z bias after the gather;
+``int8=True`` runs lin_z, fc_0, fc_1 and the shortcut through the dynamic
+int8 product (nn/quant.py), lin_in and lin_out in float.  SPADE
+(``use_spade``) scales the residual stream per block by ``scale_z.N`` of
+the latent before adding ``lin_z.N``'s injection.
 """
 
 from __future__ import annotations
@@ -26,9 +34,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.indexing import combine_interleaved
+from .quant import dot_w8a8
 
 
-def dense(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype) -> torch.Tensor:
+def dense(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype,
+          int8: bool = False) -> torch.Tensor:
+    """flax's Dense in the compute dtype; with int8 the dynamic int8
+    product, its f32 bias, then one cast (JAX ``apply_dense``)."""
+    if int8:
+        y = dot_w8a8(x.to(cdt), m.weight.t())
+        if m.bias is not None:
+            y = y + m.bias
+        return y.to(cdt)
     y = F.linear(x.to(cdt), m.weight.to(cdt))
     if m.bias is not None:
         y = y + m.bias.to(cdt)
@@ -130,11 +147,12 @@ class ResnetBlockFC(nn.Module):
         if size_in != size_out:
             self.shortcut = _linear(size_in, size_out, generator, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         act = activation(self.beta)
-        net = dense(act(x), self.fc_0, self.cdt)
-        dx = dense(act(net), self.fc_1, self.cdt)
-        x_s = x if self.shortcut is None else dense(x, self.shortcut, self.cdt)
+        net = dense(act(x), self.fc_0, self.cdt, int8)
+        dx = dense(act(net), self.fc_1, self.cdt, int8)
+        x_s = x if self.shortcut is None else dense(x, self.shortcut,
+                                                    self.cdt, int8)
         return x_s + dx
 
 
@@ -145,10 +163,6 @@ class ResnetFC(nn.Module):
                  use_spade: bool = False, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if use_spade:
-            raise NotImplementedError(
-                "SPADE is not ported yet (ROADMAP.md Queue 1 item 19)"
-            )
         self.d_in = d_in
         self.d_out = d_out
         self.n_blocks = n_blocks
@@ -170,29 +184,70 @@ class ResnetFC(nn.Module):
         self.lin_z = nn.ModuleList(
             _linear(d_latent, d_hidden, g) for _ in range(n_lin_z)
         )
+        if use_spade:
+            self.scale_z = nn.ModuleList(
+                _linear(d_latent, d_hidden, g) for _ in range(n_lin_z)
+            )
 
-    def forward(self, zx: torch.Tensor, combine_inner_dims=(1,)) -> torch.Tensor:
-        """:param zx (..., d_latent + d_in), latent first
+    @property
+    def n_lin_z(self) -> int:
+        return len(self.lin_z)
+
+    def forward(self, zx: torch.Tensor, combine_inner_dims=(1,),
+                latent_projected: bool = False,
+                int8: bool = False) -> torch.Tensor:
+        """:param zx (..., d_latent + d_in), latent first; with
+          latent_projected the latent part is n_lin_z * d_hidden wide, the
+          gathered rows of the table projected through the lin_z weights
         :param combine_inner_dims (NS, B): at combine_layer the rows are
           reshaped (-1, NS, B, H) and averaged over NS
+        :param int8 the hidden layers through the dynamic int8 product
         :return (..., d_out) f32, the leading dim divided by NS if combined
         """
         cdt = self.cdt
         zx = zx.to(cdt)
-        z = zx[..., : self.d_latent] if self.d_latent > 0 else None
-        x = zx[..., self.d_latent:]
+        d_lat = (self.n_lin_z * self.d_hidden if latent_projected
+                 else self.d_latent)
+        z = zx[..., :d_lat] if d_lat > 0 else None
+        x = zx[..., d_lat:]
         if self.d_in > 0:
             x = dense(x, self.lin_in, cdt)
         else:
             x = torch.zeros(zx.shape[:-1] + (self.d_hidden,), dtype=cdt,
                             device=zx.device)
+        # JAX's merged injection (one product over the concatenated lin_z
+        # weights): the same rounding points as the per-block form, except
+        # under int8, where it quantizes the compute-dtype weights and adds
+        # the compute-dtype biases; it is taken on >= 2^17 rows, as in JAX
+        tz_all = bz = None
+        n_rows = zx.numel() // zx.shape[-1]
+        if (z is not None and self.n_lin_z > 0 and not self.use_spade
+                and (latent_projected or (int8 and n_rows >= 1 << 17))):
+            bz = torch.cat([m.bias for m in self.lin_z]).to(cdt)
+            if latent_projected:
+                tz_all = z  # each block's bias is added after the gather
+            else:
+                wz = torch.cat([m.weight for m in self.lin_z]).to(cdt)
+                tz_all = (dot_w8a8(z, wz.t()) + bz).to(cdt)
+        H = self.d_hidden
         for blkid in range(self.n_blocks):
             if blkid == self.combine_layer:
                 x = combine_interleaved(x, combine_inner_dims,
                                         self.combine_type)
             if self.d_latent > 0 and blkid < self.combine_layer:
-                x = x + dense(z, self.lin_z[blkid], cdt)
-            x = block_out(self.blocks[blkid](x))
+                if tz_all is not None:
+                    tz = tz_all[..., blkid * H:(blkid + 1) * H]
+                    if latent_projected:
+                        tz = tz + bz[blkid * H:(blkid + 1) * H]
+                    x = x + tz
+                else:
+                    tz = dense(z, self.lin_z[blkid], cdt, int8)
+                    if self.use_spade:
+                        sz = dense(z, self.scale_z[blkid], cdt, int8)
+                        x = sz * x + tz
+                    else:
+                        x = x + tz
+            x = block_out(self.blocks[blkid](x, int8))
         return dense(activation(self.beta)(x).float(), self.lin_out,
                      torch.float32)
 

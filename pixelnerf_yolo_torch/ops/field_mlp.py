@@ -20,9 +20,11 @@ on the CUDA cores with the weight slices and the latent streamed through
 a ring of bulk and TMA copies (csrc/field_mlp_f32.cu, no packing:
 ``f32_schedule`` mirrors its walk).
 
-Each wrapper runs its plain twin (``*_plain``: the same function with the
-same rounding points, in plain torch) when its tensors lie on the CPU,
-launches its kernel when they lie on a CUDA device, and raises otherwise.
+Each wrapper calls its kernel's custom op (``pixelnerf_yolo::<mode>``),
+which runs the plain twin (``*_plain``: the same function with the same
+rounding points, in plain torch) when its tensors lie on the CPU, launches
+the kernel when they lie on a CUDA device, and raises otherwise; the ops
+are what an exported render (serve.py) records.
 
 Training goes through two autograd Functions, ``FusedResnetFC`` and
 ``FusedResnetFCPE`` (the JAX package's ``custom_vjp``s ``fused_resnetfc``
@@ -44,6 +46,7 @@ package and bound with ctypes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -53,6 +56,7 @@ import subprocess
 import time
 import weakref
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -259,12 +263,18 @@ def tc_weights(w: StackedWeights) -> torch.Tensor:
 
 
 _stacked = weakref.WeakKeyDictionary()
+# ResnetFC -> (compute dtype, StackedWeights) while ``frozen_weights`` holds
+_frozen = weakref.WeakKeyDictionary()
 
 
 def stacked_params(mlp, compute_dtype: torch.dtype) -> StackedWeights:
     """``stack_params``, kept per ResnetFC until one of its parameters
     changes: in place (its version counter moves) or by a move or a load
-    into new storage (its data pointer moves)."""
+    into new storage (its data pointer moves).  Inside ``frozen_weights``
+    the stacks made on entry, whatever the parameters are."""
+    frozen = _frozen.get(mlp)
+    if frozen is not None and frozen[0] == compute_dtype:
+        return frozen[1]
     key = (compute_dtype,
            tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
     hit = _stacked.get(mlp)
@@ -272,6 +282,27 @@ def stacked_params(mlp, compute_dtype: torch.dtype) -> StackedWeights:
         hit = (key, stack_params(mlp, compute_dtype))
         _stacked[mlp] = hit
     return hit[1]
+
+
+@contextlib.contextmanager
+def frozen_weights(mlps, compute_dtype: torch.dtype):
+    """Stack (and, for the tensor-core variant on the card, pack) each
+    ResnetFC's kernel weights once on entry and hand those out until exit.
+    ``torch.export`` traces the parameters as fake tensors, which have no
+    data pointer to key the cache on; frozen, the stacks are real tensors
+    that the exported program keeps as constants, so a served call does
+    not restack them."""
+    for mlp in mlps:
+        w = stack_params(mlp, compute_dtype)
+        if (w.w_in.device.type == "cuda"
+                and variant("full_pe", compute_dtype) == "tensor_core"):
+            tc_weights(w)
+        _frozen[mlp] = (compute_dtype, w)
+    try:
+        yield
+    finally:
+        for mlp in mlps:
+            _frozen.pop(mlp, None)
 
 
 # -- plain twins -------------------------------------------------------------
@@ -683,11 +714,36 @@ def _launch(mode: str, cdt, device, n_rows, d_in, d_latent, w, base=None,
     return out
 
 
-def _pe_args(base, latent, w, code):
+# -- the kernel ops ------------------------------------------------------------
+#
+# Each kernel entry is a ``torch.library.custom_op``, so that ``torch.export``
+# records it as one node of the exported graph (serve.py): its CUDA kernel
+# checks the operands and launches the kernel (counting the launch), its
+# CPU kernel runs the plain twin, and a fake kernel gives the output's
+# shape.  The weights travel as the list of StackedWeights' tensors
+# (WEIGHT_NAMES order) and, for the tensor-core variant on the card, the
+# packed stream (``tc_weights``).
+
+_pe_modules: dict = {}
+
+
+def _pe(num_freqs: int, freq_factor: float) -> PositionalEncoding:
+    """The in-kernel PE of xyz (with include_input), for the CPU twins."""
+    key = (num_freqs, freq_factor)
+    if key not in _pe_modules:
+        _pe_modules[key] = PositionalEncoding(num_freqs, 3, freq_factor, True)
+    return _pe_modules[key]
+
+
+def _as_stacked(weights, packed) -> StackedWeights:
+    w = StackedWeights(*weights)
+    w.tc = packed
+    return w
+
+
+def _check_pe(base, latent, w, num_freqs):
     n, dL = latent.shape
-    d_in = code.d_out + 3
-    if not (code.d_in == 3 and code.include_input and code.num_freqs > 0):
-        raise ValueError("the in-kernel PE takes xyz with include_input")
+    d_in = 6 * num_freqs + 3 + 3  # PE(xyz) with xyz, then viewdirs
     _check(base, "base", (n, 6), torch.float32, latent.device)
     _check(latent, "latent", (n, dL), latent.dtype, latent.device)
     _check_weights(w, latent.dtype, latent.device, d_in, dL, pre=True,
@@ -695,36 +751,65 @@ def _pe_args(base, latent, w, code):
     return n, dL, d_in
 
 
-def full_pe(base, latent, w: StackedWeights, code) -> torch.Tensor:
-    """(N, 6) f32, (N, dL) cdt -> (N, d_out) f32: the whole ResnetFC."""
-    if latent.device.type == "cpu":
-        return full_pe_plain(base, latent, w, code)
-    n, dL, d_in = _pe_args(base, latent, w, code)
+@torch.library.custom_op("pixelnerf_yolo::full_pe", mutates_args=(),
+                         device_types="cuda")
+def _full_pe_op(base: torch.Tensor, latent: torch.Tensor,
+                weights: list[torch.Tensor], packed: Optional[torch.Tensor],
+                num_freqs: int, freq_factor: float) -> torch.Tensor:
+    w = _as_stacked(weights, packed)
+    n, dL, d_in = _check_pe(base, latent, w, num_freqs)
     _check_weights(w, latent.dtype, latent.device, d_in, dL, pre=False,
                    post=True)
     out = torch.empty((n, w.w_out.shape[1]), dtype=torch.float32,
                       device=latent.device)
     return _launch("full_pe", latent.dtype, latent.device, n, d_in, dL, w,
-                   base=base, latent=latent, out=out,
-                   num_freqs=code.num_freqs, freq_factor=code.freq_factor)
+                   base=base, latent=latent, out=out, num_freqs=num_freqs,
+                   freq_factor=freq_factor)
 
 
-def pre_combine_pe(base, latent, w: StackedWeights, code) -> torch.Tensor:
-    """(N, 6) f32, (N, dL) cdt -> h (N, H) cdt: PE, lin_in, CL blocks."""
-    if latent.device.type == "cpu":
-        return pre_combine_pe_plain(base, latent, w, code)
-    n, dL, d_in = _pe_args(base, latent, w, code)
+@_full_pe_op.register_kernel("cpu")
+def _(base, latent, weights, packed, num_freqs, freq_factor):
+    return full_pe_plain(base, latent, _as_stacked(weights, packed),
+                         _pe(num_freqs, freq_factor))
+
+
+@_full_pe_op.register_fake
+def _(base, latent, weights, packed, num_freqs, freq_factor):
+    return latent.new_empty((latent.shape[0], weights[12].shape[1]),
+                            dtype=torch.float32)
+
+
+@torch.library.custom_op("pixelnerf_yolo::pre_combine_pe", mutates_args=(),
+                         device_types="cuda")
+def _pre_combine_pe_op(base: torch.Tensor, latent: torch.Tensor,
+                       weights: list[torch.Tensor],
+                       packed: Optional[torch.Tensor], num_freqs: int,
+                       freq_factor: float) -> torch.Tensor:
+    w = _as_stacked(weights, packed)
+    n, dL, d_in = _check_pe(base, latent, w, num_freqs)
     out = torch.empty((n, w.hidden), dtype=latent.dtype, device=latent.device)
     return _launch("pre_combine_pe", latent.dtype, latent.device, n, d_in,
                    dL, w, base=base, latent=latent, out=out,
-                   num_freqs=code.num_freqs, freq_factor=code.freq_factor)
+                   num_freqs=num_freqs, freq_factor=freq_factor)
 
 
-def pre_combine(zfeat, latent, w: StackedWeights) -> torch.Tensor:
-    """(N, d_in) cdt, (N, dL) cdt -> h (N, H) cdt: lin_in on the given
-    z-features, CL blocks."""
-    if latent.device.type == "cpu":
-        return pre_combine_plain(zfeat, latent, w)
+@_pre_combine_pe_op.register_kernel("cpu")
+def _(base, latent, weights, packed, num_freqs, freq_factor):
+    return pre_combine_pe_plain(base, latent, _as_stacked(weights, packed),
+                                _pe(num_freqs, freq_factor))
+
+
+@_pre_combine_pe_op.register_fake
+def _(base, latent, weights, packed, num_freqs, freq_factor):
+    return latent.new_empty((latent.shape[0], weights[0].shape[1]))
+
+
+@torch.library.custom_op("pixelnerf_yolo::pre_combine", mutates_args=(),
+                         device_types="cuda")
+def _pre_combine_op(zfeat: torch.Tensor, latent: torch.Tensor,
+                    weights: list[torch.Tensor],
+                    packed: Optional[torch.Tensor]) -> torch.Tensor:
+    w = _as_stacked(weights, packed)
     n, dL = latent.shape
     cdt, dev = latent.dtype, latent.device
     d_in = w.w_in.shape[0]
@@ -736,10 +821,21 @@ def pre_combine(zfeat, latent, w: StackedWeights) -> torch.Tensor:
                    latent=latent, out=out)
 
 
-def post_combine(h, w: StackedWeights) -> torch.Tensor:
-    """(N, H) cdt -> (N, d_out) f32: post-combine blocks and lin_out."""
-    if h.device.type == "cpu":
-        return post_combine_plain(h, w)
+@_pre_combine_op.register_kernel("cpu")
+def _(zfeat, latent, weights, packed):
+    return pre_combine_plain(zfeat, latent, _as_stacked(weights, packed))
+
+
+@_pre_combine_op.register_fake
+def _(zfeat, latent, weights, packed):
+    return latent.new_empty((latent.shape[0], weights[0].shape[1]))
+
+
+@torch.library.custom_op("pixelnerf_yolo::post_combine", mutates_args=(),
+                         device_types="cuda")
+def _post_combine_op(h: torch.Tensor, weights: list[torch.Tensor],
+                     packed: Optional[torch.Tensor]) -> torch.Tensor:
+    w = _as_stacked(weights, packed)
     n = h.shape[0]
     _check(h, "h", (n, w.hidden), h.dtype, h.device)
     _check_weights(w, h.dtype, h.device, 0, 0, pre=False, post=True)
@@ -747,6 +843,60 @@ def post_combine(h, w: StackedWeights) -> torch.Tensor:
                       device=h.device)
     return _launch("post_combine", h.dtype, h.device, n, 0, 0, w, h=h,
                    out=out)
+
+
+@_post_combine_op.register_kernel("cpu")
+def _(h, weights, packed):
+    return post_combine_plain(h, _as_stacked(weights, packed))
+
+
+@_post_combine_op.register_fake
+def _(h, weights, packed):
+    return h.new_empty((h.shape[0], weights[12].shape[1]),
+                       dtype=torch.float32)
+
+
+def _op_weights(mode: str, w: StackedWeights, t: torch.Tensor):
+    """The op's weight arguments: the stacked tensors and, where the launch
+    takes the tensor-core kernel on the card, the packed stream.  Raises
+    off the CPU and off CUDA (the ops have no other kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"field MLP kernels run on CUDA tensors (their plain "
+                         f"twins on CPU tensors), got {t.device}")
+    packed = (tc_weights(w) if t.device.type == "cuda"
+              and variant(mode, t.dtype) == "tensor_core" else None)
+    return [getattr(w, f) for f in WEIGHT_NAMES], packed
+
+
+def _pe_code_args(code) -> tuple[int, float]:
+    if not (code.d_in == 3 and code.include_input and code.num_freqs > 0):
+        raise ValueError("the in-kernel PE takes xyz with include_input")
+    return code.num_freqs, float(code.freq_factor)
+
+
+def full_pe(base, latent, w: StackedWeights, code) -> torch.Tensor:
+    """(N, 6) f32, (N, dL) cdt -> (N, d_out) f32: the whole ResnetFC."""
+    return _full_pe_op(base, latent, *_op_weights("full_pe", w, latent),
+                       *_pe_code_args(code))
+
+
+def pre_combine_pe(base, latent, w: StackedWeights, code) -> torch.Tensor:
+    """(N, 6) f32, (N, dL) cdt -> h (N, H) cdt: PE, lin_in, CL blocks."""
+    return _pre_combine_pe_op(base, latent,
+                              *_op_weights("pre_combine_pe", w, latent),
+                              *_pe_code_args(code))
+
+
+def pre_combine(zfeat, latent, w: StackedWeights) -> torch.Tensor:
+    """(N, d_in) cdt, (N, dL) cdt -> h (N, H) cdt: lin_in on the given
+    z-features, CL blocks."""
+    return _pre_combine_op(zfeat, latent,
+                           *_op_weights("pre_combine", w, latent))
+
+
+def post_combine(h, w: StackedWeights) -> torch.Tensor:
+    """(N, H) cdt -> (N, d_out) f32: post-combine blocks and lin_out."""
+    return _post_combine_op(h, *_op_weights("post_combine", w, h))
 
 
 def fused_pe_forward(mlp, latent, base, ns: int, inner_b: int,
@@ -858,7 +1008,14 @@ class FusedResnetFCPE(_FusedField):
 def fused_field(mlp, latent, x, ns: int, inner_b: int,
                 compute_dtype: torch.dtype, code=None) -> torch.Tensor:
     """The fused field, differentiable: ``fused_pe_forward`` on the PE base
-    x when code is given, else ``fused_forward`` on the z-features x."""
+    x when code is given, else ``fused_forward`` on the z-features x.
+    Without autograd it calls them directly (what ``torch.export`` traces:
+    the kernel ops, no autograd Function)."""
+    if not torch.is_grad_enabled():
+        if code is None:
+            return fused_forward(mlp, latent, x, ns, inner_b, compute_dtype)
+        return fused_pe_forward(mlp, latent, x, ns, inner_b, compute_dtype,
+                                code)
     fn = FusedResnetFC if code is None else FusedResnetFCPE
     return fn.apply(mlp, code, ns, inner_b, compute_dtype, latent, x,
                     *mlp.parameters())

@@ -7,6 +7,11 @@ bilinear and nearest; paddings zeros, border and reflection; both
 ``align_corners`` conventions.  Non-finite coordinates follow torch: zeros
 padding propagates NaN into the output, border and reflection clip NaN and
 +inf to the far border and -inf to 0.
+
+``interp_matmul`` reproduces the rounding points of the JAX package's
+one-hot matmul form of the bilinear combine (small bf16 tables on the YOLO
+path) with the four row gathers; ``grid_sample_nhwc_q8`` samples a
+per-channel int8 table (``quantize_rows_int8``, model.latent_int8).
 """
 
 from __future__ import annotations
@@ -98,43 +103,14 @@ def _finite_clip(i, size: int):
     return torch.clamp(i, 0, size - 1)
 
 
-def grid_sample_nhwc(
-    flat: torch.Tensor,
-    grid: torch.Tensor,
-    height: int,
-    width: int,
-    mode: str = "bilinear",
-    padding_mode: str = "zeros",
-    align_corners: bool = False,
-) -> torch.Tensor:
-    """Sample row-major flattened features at normalized grid locations.
-
-    :param flat (B, H*W, C) feature rows
-    :param grid (B, N, 2) in [-1, 1], last dim (x, y)
-    :return (B, N, C) in flat's dtype
-    """
-    H, W = height, width
+def _corners(grid, H: int, W: int, padding_mode: str, align_corners: bool):
+    """The four bilinear corners, in the order (x0, y0), (x1, y0), (x0, y1),
+    (x1, y1): for each its (B, N) row index (clipped into the table), its
+    in-range flag and its f32 weight wx * wy."""
     gx = _unnormalize(grid[..., 0], W, align_corners)
     gy = _unnormalize(grid[..., 1], H, align_corners)
     gx = _apply_padding(gx, W, padding_mode, align_corners)
     gy = _apply_padding(gy, H, padding_mode, align_corners)
-    cdt = flat.dtype
-
-    def gather(ix, iy, valid):
-        idx = (iy * W + ix).to(torch.int64)  # (B, N)
-        return gather_rows(flat, idx) * valid[..., None]
-
-    def in_range(ix, iy):
-        return ((ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)).to(cdt)
-
-    if mode == "nearest":
-        ix = torch.round(gx)
-        iy = torch.round(gy)
-        valid = in_range(ix, iy)
-        return gather(_finite_clip(ix, W), _finite_clip(iy, H), valid)
-    if mode != "bilinear":
-        raise NotImplementedError(f"grid_sample mode {mode!r}")
-
     x0 = torch.floor(gx)
     y0 = torch.floor(gy)
     x1 = x0 + 1
@@ -143,15 +119,115 @@ def grid_sample_nhwc(
     wy1 = gy - y0
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
+    out = []
+    for ix, iy, wx, wy in ((x0, y0, wx0, wy0), (x1, y0, wx1, wy0),
+                           (x0, y1, wx0, wy1), (x1, y1, wx1, wy1)):
+        valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
+        idx = (_finite_clip(iy, H) * W + _finite_clip(ix, W)).to(torch.int64)
+        out.append((idx, valid, wx * wy))
+    return out
 
-    def corner(ix, iy, wx, wy):
-        w = (wx * wy).to(cdt)
-        vals = gather(_finite_clip(ix, W), _finite_clip(iy, H), in_range(ix, iy))
-        return vals * w[..., None]
 
-    return (
-        corner(x0, y0, wx0, wy0)
-        + corner(x1, y0, wx1, wy0)
-        + corner(x0, y1, wx0, wy1)
-        + corner(x1, y1, wx1, wy1)
-    )
+def _interp_matmul(flat, corners):
+    """The JAX package's one-hot matmul combine (``interp_matmul``) by four
+    row gathers, with its rounding points: NaN table entries zeroed; each
+    corner's weight bf16(wx * wy) * valid; the weights of corners that land
+    on one row summed in the table's dtype, in corner order (JAX adds the
+    four one-hot terms in that dtype); then at most four products of that
+    dtype summed in f32 and rounded once."""
+    cdt = flat.dtype
+    flat = torch.where(torch.isnan(flat), torch.zeros_like(flat), flat)
+    idx = [c[0] for c in corners]
+    w = [c[2].to(cdt) * c[1].to(cdt) for c in corners]
+    zero = torch.zeros((), dtype=cdt, device=flat.device)
+    acc = None
+    for i in range(4):
+        # corner i carries the summed weight of its row when it is the
+        # row's first corner, else nothing
+        wi = w[i]
+        for j in range(i + 1, 4):
+            wi = wi + torch.where(idx[j] == idx[i], w[j], zero)
+        for j in range(i):
+            wi = torch.where(idx[j] == idx[i], zero, wi)
+        # bf16 x bf16 products are exact in f32; the sum rounds in f32
+        vals, wf = gather_rows(flat, idx[i]), wi.float()[..., None]
+        acc = vals * wf if acc is None else torch.addcmul(acc, vals, wf)
+    return acc.to(cdt)
+
+
+def grid_sample_nhwc(
+    flat: torch.Tensor,
+    grid: torch.Tensor,
+    height: int,
+    width: int,
+    mode: str = "bilinear",
+    padding_mode: str = "zeros",
+    align_corners: bool = False,
+    interp_matmul: bool = False,
+) -> torch.Tensor:
+    """Sample row-major flattened features at normalized grid locations.
+
+    :param flat (B, H*W, C) feature rows
+    :param grid (B, N, 2) in [-1, 1], last dim (x, y)
+    :param interp_matmul the bilinear combine at the rounding points of the
+      JAX package's one-hot matmul form (``_interp_matmul``); NaN table
+      entries contribute 0 there instead of propagating
+    :return (B, N, C) in flat's dtype
+    """
+    H, W = height, width
+    if mode == "bilinear":
+        corners = _corners(grid, H, W, padding_mode, align_corners)
+        if interp_matmul:
+            return _interp_matmul(flat, corners)
+        return _combine(flat, corners, flat.dtype)
+    if mode != "nearest":
+        raise NotImplementedError(f"grid_sample mode {mode!r}")
+    gx = _unnormalize(grid[..., 0], W, align_corners)
+    gy = _unnormalize(grid[..., 1], H, align_corners)
+    ix = torch.round(_apply_padding(gx, W, padding_mode, align_corners))
+    iy = torch.round(_apply_padding(gy, H, padding_mode, align_corners))
+    valid = ((ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1))
+    idx = (_finite_clip(iy, H) * W + _finite_clip(ix, W)).to(torch.int64)
+    return gather_rows(flat, idx) * valid.to(flat.dtype)[..., None]
+
+
+def _combine(flat, corners, dtype):
+    """The four-corner bilinear combine in ``dtype``: each corner's rows
+    times its in-range flag times its weight, summed in corner order."""
+    acc = None
+    for idx, valid, w in corners:
+        term = (gather_rows(flat, idx).to(dtype) * valid.to(dtype)[..., None]
+                * w.to(dtype)[..., None])
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def grid_sample_nhwc_q8(flat_q: torch.Tensor, scales: torch.Tensor,
+                        grid: torch.Tensor, height: int, width: int,
+                        padding_mode: str = "zeros",
+                        align_corners: bool = False,
+                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Bilinear sample from a per-channel int8 table (JAX
+    ``grid_sample_nhwc_q8``): each corner's rows cast to out_dtype, times
+    its in-range flag and its out_dtype weight, summed in corner order in
+    out_dtype; the per-channel scales applied once after the combine.
+
+    :param flat_q (B, H*W, C) int8; scales (C,) f32
+    :param grid (B, N, 2) in [-1, 1]
+    :return (B, N, C) out_dtype
+    """
+    acc = _combine(flat_q, _corners(grid, height, width, padding_mode,
+                                    align_corners), out_dtype)
+    return acc * scales.to(out_dtype)[None, None, :]
+
+
+def quantize_rows_int8(flat: torch.Tensor):
+    """(B, R, C) -> per-channel symmetric int8: (values int8, scales (C,)
+    f32), the scale of a channel its absolute max over B and R / 127."""
+    f = flat.float()
+    absmax = f.abs().amax(dim=(0, 1))
+    # a true division on the card too (a Python-number divisor is taken
+    # there as a product with its reciprocal)
+    scales = torch.clamp(absmax, min=1e-12) / absmax.new_tensor(127.0)
+    q = torch.clamp(torch.round(f / scales[None, None, :]), -127, 127)
+    return q.to(torch.int8), scales

@@ -19,11 +19,21 @@ importance samples follow the coarse weights as constants; the depth
 samples keep the gradient of the coarse depth, which reaches the sample
 points through the sort, the latent gather's coordinates and the field's
 positional encoding.
+
+``early_terminate = f`` (inference only, ignored under ``train``): the
+fine pass runs on the top ⌈cb·f⌉ rays (rounded up to a multiple of 8) of
+each chunk and scene by coarse weight sum, reusing their coarse latents;
+the other rays keep their coarse rgb and depth as the fine output, and
+their coarse weights, zero-padded to the union width, as its weights.
+The sample draws are made over the whole chunk and then compacted, so a
+kept ray's fine output is the ungated one, and f = 1 renders bitwise as
+without the gate.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -53,13 +63,6 @@ class NeRFRenderer:
     early_terminate: float = 0.0
     device: str = "cuda"
 
-    def __post_init__(self):
-        if self.early_terminate > 0.0:
-            raise NotImplementedError(
-                "renderer.early_terminate is not ported yet "
-                "(ROADMAP.md Queue 1 item 19)"
-            )
-
     @property
     def using_fine(self) -> bool:
         return self.n_fine > 0
@@ -83,6 +86,12 @@ class NeRFRenderer:
             early_terminate=conf.get_float("early_terminate", 0.0),
             device=device,
         )
+
+    def _gated_capacity(self, cb: int) -> int:
+        """Fine-pass rays of a cb-ray chunk under early_terminate: ⌈cb·f⌉
+        rounded up to a multiple of 8, capped at cb."""
+        c0 = max(1, math.ceil(cb * float(self.early_terminate)))
+        return min(cb, ((c0 + 7) // 8) * 8)
 
     # -- internals -------------------------------------------------------
 
@@ -212,6 +221,10 @@ class NeRFRenderer:
         res = {"w_c": w_c, "rgb_c": rgb_c, "depth_c": depth_c}
         if not self.using_fine:
             return res
+        if self.early_terminate > 0.0 and not train and lat is not None:
+            res["w_f"], res["rgb_f"], res["depth_f"] = self._fine_gated(
+                model, cond, rays, z_c, w_c, rgb_c, depth_c, lat, sb, draws)
+            return res
         samps = [z_c]
         if "u" in draws:
             samps.append(sample_fine(
@@ -228,6 +241,57 @@ class NeRFRenderer:
             sb, sigma_noise=noise_f,
         )
         return res
+
+    def _fine_gated(self, model, cond, rays, z_c, w_c, rgb_c, depth_c, lat,
+                    sb: int, draws: dict):
+        """The early-termination fine pass of one chunk (JAX
+        ``_fine_gated``): the top-C rays of each scene by coarse weight sum
+        (a stable descending sort: among equal sums the lower index first,
+        as ``lax.top_k``) get the fine pass on their compacted draws and
+        coarse latents; the fine outputs of the rest are their coarse ones.
+
+        rays (sb*cb, 8); z_c, w_c (sb*cb, Kc); lat (sb*NS, cb*Kc, C)."""
+        cb = rays.shape[0] // sb
+        Kc = z_c.shape[1]
+        NS = cond.num_views_per_obj
+        Cc = self._gated_capacity(cb)
+        wsum = w_c.sum(-1).reshape(sb, cb)
+        idx = torch.sort(wsum, dim=1, descending=True,
+                         stable=True).indices[:, :Cc]  # (sb, Cc)
+        scene = torch.arange(sb, device=idx.device)[:, None]
+
+        def take(x):
+            xs = x.reshape(sb, cb, *x.shape[1:])[scene, idx]
+            return xs.reshape(sb * Cc, *x.shape[1:])
+
+        r2c = take(rays)
+        samps = [take(z_c)]
+        if "u" in draws:
+            samps.append(sample_fine(
+                r2c, take(w_c), self.n_fine - self.n_fine_depth, Kc,
+                lindisp=self.lindisp, u=take(draws["u"]),
+                u_jitter=take(draws["u_jitter"]),
+            ))
+        if "noise_d" in draws:
+            samps.append(sample_fine_depth(
+                r2c, take(depth_c), self.n_fine_depth,
+                depth_std=self.depth_std, noise=take(draws["noise_d"]),
+            ))
+        C = lat.shape[-1]
+        latc = lat.reshape(sb, NS, cb, Kc, C)[
+            scene[:, :, None], torch.arange(NS, device=idx.device)[None, :,
+                                                                   None],
+            idx[:, None, :]].reshape(sb * NS, Cc * Kc, C)
+        w_g, rgb_g, depth_g = self._fine_pass_reuse(
+            model, cond, r2c, torch.cat(samps, dim=-1), Kc, latc, sb)
+
+        def put(base, upd):
+            b = base.reshape(sb, cb, *base.shape[1:]).clone()
+            b[scene, idx] = upd.reshape(sb, Cc, *upd.shape[1:])
+            return b.reshape(base.shape)
+
+        w_base = torch.nn.functional.pad(w_c, (0, self.n_fine))
+        return put(w_base, w_g), put(rgb_c, rgb_g), put(depth_c, depth_g)
 
     # -- public API --------------------------------------------------------
 

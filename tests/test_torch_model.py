@@ -271,10 +271,14 @@ def test_sched_step_matches_jax():
 def test_unported_options_raise():
     from pixelnerf_yolo_torch.models import make_model
 
+    # early_terminate is ported (tests/test_torch_early_terminate.py)
     conf = small_flagship()
     conf.put("renderer.early_terminate", 0.5)
-    with pytest.raises(NotImplementedError, match="early_terminate"):
-        make_renderer(conf, device="cpu")
+    assert make_renderer(conf, device="cpu").early_terminate == 0.5
+    # the global encoder is not (ROADMAP.md Queue 1 item 22)
+    conf.put("model.use_global_encoder", True)
+    with pytest.raises(NotImplementedError, match="global encoder"):
+        make_model(conf.get_config("model"), device="cpu")
 
 
 def test_from_jax_variables_layouts(jax_side):

@@ -28,8 +28,10 @@ def small_flagship(compute_dtype="float32", use_fused_mlp=None,
 
 def small_yolo(compute_dtype="float32", use_fused_mlp=None, n_coarse=16):
     """The YOLO flagship conf (ELAN backbone at its full 1792-d output) at
-    test size: d_hidden 64 and 16 coarse samples.  The JAX package's bf16
-    latent-table pre-projection is switched off: the port has none."""
+    test size: d_hidden 64 and 16 coarse samples.  The bf16 latent-table
+    pre-projection (both packages' default on the plain route) is switched
+    off, so these tests hold the raw latent; tests/test_torch_serving.py
+    holds the pre-projection."""
     conf = _flagship(d_hidden=64, backbone="custom", yolo=True,
                      compute_dtype=compute_dtype)
     conf.put("model.latent_preproject", False)
@@ -189,8 +191,8 @@ def yolo_train_conf(parse, use_fused_mlp, compute_dtype="float32",
                     puts=None):
     """The JAX package's dry-run YOLO trainer conf (resnet18 with 2 layers,
     d_hidden 64, 16 coarse samples, 16-ray chunks) through ``parse`` (either
-    package's hocon); the JAX package's bf16 latent pre-projection off;
-    then the keys of ``puts`` set."""
+    package's hocon); the bf16 latent pre-projection off (``puts`` may turn
+    it on: tests/test_torch_serving.py); then the keys of ``puts`` set."""
     from __graft_entry__ import _DRYRUN_YOLO_CONF
 
     conf = parse(_DRYRUN_YOLO_CONF)
