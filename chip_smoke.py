@@ -114,9 +114,19 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      card within 1e-4 x max(1, max|cpu|) of the CPU, no launch; (f) the
      bf16 YOLO flagship and NeRF NS=1 (16,384 rays each) exported with
      serve.export_render, saved, loaded and run: bitwise the live render,
-     with its launches (above 0).
+     with its launches (above 0);
+ 13. checkpoint interchange: the bf16 YOLO flagship (phases 4, 12) and
+     the bf16 NeRF flagship each saved as a reference checkpoint (its
+     state_dict plus the reference's non-persistent buffers), converted by
+     ``python -m pixelnerf_yolo_torch.convert --torch_ckpt`` (the YOLO
+     encoder, which a reference checkpoint does not carry, from --seed)
+     and loaded by ``load_weights`` into a fresh model on the card; the
+     converted model's kernel render (YOLO 16,384 rays through
+     pre_combine_pe + post_combine; NeRF NS=1 16,384 rays through full_pe)
+     bitwise the source model's; then scripts/torch_convergence.py's
+     in-memory YOLO scenes built once (shapes and box count).
 The launch counters (per wrapper and per wrapper and variant) are zeroed
-just before each render path (3, 4, 5, 6, 12) and each kernel-route
+just before each render path (3, 4, 5, 6, 12, 13) and each kernel-route
 training step (8, 9, 10) or evaluation (10, 11) and read just after it; a
 kernel of a path that never launched fails it.
 
@@ -2697,6 +2707,161 @@ def serving_path(device):
     return ok, launches, results
 
 
+# -- phase 13: checkpoint interchange ----------------------------------------
+
+# the renders held bitwise between a model and the model loaded from its
+# converted checkpoint: the YOLO flagship through pre_combine_pe +
+# post_combine, the NeRF flagship at NS=1 through full_pe
+INTERCHANGE_RAYS = 16384
+
+
+def reference_checkpoint(model, path):
+    """Save the model's weights as a reference PixelNeRFNet checkpoint: its
+    state_dict (the port's keys are the reference's) with the reference's
+    non-persistent buffers added."""
+    import torch
+
+    from pixelnerf_yolo_torch.convert import REFERENCE_BUFFERS
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for name in REFERENCE_BUFFERS[:-1]:
+        sd[name] = torch.zeros(1, 3)
+    torch.save(sd, path)
+
+
+def convert_quietly(argv) -> str:
+    """convert.main(argv) with its key lists summarized: (the count of
+    ignored keys, the warnings' heads)."""
+    import io
+    import warnings
+
+    from pixelnerf_yolo_torch import convert
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        convert.main(argv)
+    ignored = [ln.split(":")[0] for ln in out.getvalue().splitlines()
+               if ln.startswith("ignored")]
+    heads = [str(w.message)[:60] for w in caught]
+    return f"{'; '.join(ignored) or 'nothing ignored'}; warnings: {heads}"
+
+
+def interchange_one(label, device, tmp, conf_args, render_fn):
+    """Convert one flagship's reference checkpoint with the CLI, load it
+    into a fresh model on the card, and hold the kernel render of each
+    bitwise.  Returns (ok, launches of the converted model's render)."""
+    import argparse
+
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import flagship_conf_text
+    from pixelnerf_yolo_torch.config.hocon import parse_string
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+    from pixelnerf_yolo_torch.train import checkpoints
+
+    out_scale = 1.0 if conf_args.get("yolo") else 0.05
+    model, renderer = build_models(device, out_scale=out_scale,
+                                   dtypes=("bfloat16",),
+                                   **conf_args)["bfloat16"]
+    text = flagship_conf_text(compute_dtype="bfloat16", **conf_args)
+    conf_path = os.path.join(tmp, f"{label}.conf")
+    with open(conf_path, "w") as f:
+        f.write(text)
+    src = os.path.join(tmp, f"{label}_reference")
+    reference_checkpoint(model, src)
+    args = argparse.Namespace(checkpoints_path=os.path.join(tmp, "ckpt"),
+                              name=label, resume=True)
+    summary = convert_quietly([
+        "--torch_ckpt", src, "--conf", conf_path, "--out",
+        os.path.join(checkpoints.ckpt_dir(args), "pixel_nerf_latest"),
+        "--seed", "0", "--device", str(device)])
+    fresh = make_model(parse_string(text).get_config("model"), device=device,
+                       seed=1)
+    loaded = checkpoints.load_weights(args, fresh)
+    want = render_fn(model, renderer)
+    fm.reset_launches()
+    got = render_fn(fresh, renderer)
+    launches = dict(fm.variant_launches)
+    flat = [(k, got[k], want[k]) for k in got] if isinstance(got, dict) \
+        else [("out", got, want)]
+    same = all(torch.equal(a, b) for _, a, b in flat)
+    finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in flat)
+    ok = loaded and same and finite
+    print(f"  {label}: convert --torch_ckpt ({summary}); load_weights "
+          f"{'ok' if loaded else 'FAILED'}; render of the converted model "
+          f"{'bitwise equal' if same else 'DIFFERS'} to the source's "
+          f"({', '.join(k for k, _, _ in flat)}); launches {launches}",
+          flush=True)
+    del model, fresh
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def interchange_path(device):
+    """Phase 13.  Returns (ok, launches by path)."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pixelnerf_yolo_torch.config.hocon import parse_file
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def yolo_out(model, renderer):
+        return yolo_render(model, renderer, INTERCHANGE_RAYS, device,
+                           "auto")[0]
+
+    def nerf_out(model, renderer):
+        out, _ = render({"bfloat16": (model, renderer)}, 1, "bfloat16",
+                        INTERCHANGE_RAYS, device, "auto")
+        return {f"{p}.{k}": out[p][k] for p in ("coarse", "fine")
+                for k in ("rgb", "depth")}
+
+    ok, launches = True, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        good, launches["interchange_yolo"] = interchange_one(
+            "yolo", device, tmp, {"yolo": True, "backbone": "custom"},
+            yolo_out)
+        good &= (launched(launches["interchange_yolo"], "pre_combine_pe") > 0
+                 and launched(launches["interchange_yolo"],
+                              "post_combine") > 0)
+        ok &= good
+        good, launches["interchange_nerf"] = interchange_one(
+            "nerf", device, tmp, {}, nerf_out)
+        good &= launched(launches["interchange_nerf"], "full_pe") > 0
+        ok &= good
+
+    # the card recipes' in-memory YOLO scenes (no imageio or cv2 needed)
+    spec = importlib.util.spec_from_file_location(
+        "torch_convergence", os.path.join(here, "scripts",
+                                          "torch_convergence.py"))
+    tc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tc)
+    train, val, test = tc.yolo_scenes(parse_file(os.path.join(
+        here, "conf", "exp", "yolo.conf")))
+    item = train.base_dset[0]
+    boxes = sum(int((grid[0][..., 0] == 1).sum())
+                for scene in train.base_dset.items for grid in scene["bboxes"])
+    good = (len(train) == 2 and len(val) == len(test) == 1
+            and item["images"].shape == (10, 3, 121, 128)
+            and bool(np.isfinite(item["images"]).all()) and boxes == 40)
+    print(f"  in-memory YOLO scenes (scripts/torch_convergence.py): "
+          f"{len(train)} train / {len(val)} val / {len(test)} test, images "
+          f"{item['images'].shape}, poses {item['poses'].shape}, focal "
+          f"{item['focal'].tolist()}, {boxes} boxes in the grids "
+          f"{'ok' if good else 'FAILED'}", flush=True)
+    ok &= good
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok, launches
+
+
 def main() -> int:
     import torch
 
@@ -2723,7 +2888,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-12; prints the kernels line; True when every check held."""
+    """Phases 2-13; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -2821,13 +2986,15 @@ def run(device) -> bool:
           f"{time.perf_counter() - t11:.1f} s", flush=True)
     sok, serve_launches, _ = serving_path(device)
     ok &= sok
+    iok, interchange_launches = interchange_path(device)
+    ok &= iok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
              "train_step": train_launches["bfloat16"],
              "train_step_f32": train_launches["float32"],
              **nerf_train_launches, **ms_launches, **eval_launches,
-             **serve_launches}
+             **serve_launches, **interchange_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

@@ -39,6 +39,16 @@ def flagship_conf(d_hidden: int = 512, backbone: str = "resnet34",
                   num_layers: int = 4, compute_dtype: str = "float32",
                   yolo: bool = False,
                   use_code_viewdirs: bool = False) -> Config:
+    return parse_string(flagship_conf_text(
+        d_hidden, backbone, num_layers, compute_dtype, yolo,
+        use_code_viewdirs))
+
+
+def flagship_conf_text(d_hidden: int = 512, backbone: str = "resnet34",
+                       num_layers: int = 4, compute_dtype: str = "float32",
+                       yolo: bool = False,
+                       use_code_viewdirs: bool = False) -> str:
+    """``flagship_conf``'s HOCON text (a conf file's content)."""
     mlp = f"""type = resnet
            n_blocks = 5
            d_hidden = {d_hidden}
@@ -49,7 +59,7 @@ def flagship_conf(d_hidden: int = 512, backbone: str = "resnet34",
            num_anchors_per_scale = 3
            yolo = True""" if yolo else ""
     fine = "type = empty" if yolo else mlp
-    return parse_string(
+    return (
         f"""
         model {{
             compute_dtype = {compute_dtype}

@@ -254,8 +254,12 @@ def calculate_precision_recall_f1(tp: int, fp: int, fn: int):
 
 
 def draw_bounding_boxes(image: np.ndarray, boxes: list) -> np.ndarray:
-    """Draw class-colored boxes and labels (needs cv2)."""
-    import cv2
+    """Draw class-colored boxes and labels; without cv2 the boxes' outlines
+    only, in numpy."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
 
     colors = [(1.0, 0.48, 0.0), (0.0, 0.79, 0.14)]
     class_names = ["Human", "Car"]
@@ -282,6 +286,11 @@ def draw_bounding_boxes(image: np.ndarray, boxes: list) -> np.ndarray:
         uly = min(max(uly, 0), h - 1)
         lrx = min(max(lrx, 0), w - 1)
         lry = min(max(lry, 0), h - 1)
+        if cv2 is None:
+            color = colors[class_pred]
+            output_image[uly:lry + 1, [ulx, lrx]] = color
+            output_image[[uly, lry], ulx:lrx + 1] = color
+            continue
         cv2.rectangle(
             output_image, (ulx, uly), (lrx, lry), colors[class_pred], thickness=1
         )

@@ -25,9 +25,13 @@ def nms_padded(boxes: torch.Tensor, iou_threshold: float,
 
     :param boxes (N, 6) rows [class, score, x, y, w, h]; padding rows must
       have score <= score_threshold
-    :return (kept (max_out, 6), valid (max_out,) bool)
+    :return (kept (max_out, 6), valid (max_out,) bool); with no boxes
+      (N = 0) nothing is kept (the JAX package's nms_padded raises there)
     """
     n = boxes.shape[0]
+    if n == 0:
+        return (boxes.new_zeros((max_out, 6)),
+                torch.zeros(max_out, dtype=torch.bool, device=boxes.device))
     scores = boxes[:, 1]
     wh_ok = ((boxes[:, 4] > 10e-4) & (boxes[:, 4] < 10e4)
              & (boxes[:, 5] > 10e-4) & (boxes[:, 5] < 10e4))

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from ..config.args import parse_args
 from ..data import DataLoader, get_split_dataset
+from ..detect.boxes import calculate_precision_recall_f1
 from ..models import make_model
 from ..render import make_renderer
 from ..train import make_trainer
@@ -45,12 +46,15 @@ def extra_args(parser):
     return add_device_arg(parser)
 
 
-def build_trainer(args, conf):
-    """The YOLO trainer over the conf's datasets, with the trained weights
+def build_trainer(args, conf, splits=None):
+    """The YOLO trainer over the conf's datasets (or the given (train, val,
+    test) splits), with the trained weights
     (checkpoints/<name>/pixel_nerf_latest); returns (trainer, test set)."""
     check_one_device(args)
-    dset, val_dset, test_dset = get_split_dataset(
-        args.dataset_format, args.datadir, conf=conf)
+    if splits is None:
+        splits = get_split_dataset(args.dataset_format, args.datadir,
+                                   conf=conf)
+    dset, val_dset, test_dset = splits
     print("dset z_near {}, z_far {}, lindisp {}".format(
         dset.z_near, dset.z_far, getattr(dset, "lindisp", "N/A")))
     model = make_model(conf.get_config("model"), device=args.device,
@@ -70,18 +74,20 @@ def evaluate(trainer, test_dset, calibrate=None):
     """The metric protocol over test_dset, one scene at a time.
 
     :param calibrate None, or the confidence grid of ``calibrate_scales``
-    :return {"precision", "recall", "f1", "map50", "per_class"}, or with
-      calibrate {"results", "best"} as calibrate_scales returns them
+    :return {"precision", "recall", "f1", "map50", "per_class", "tp",
+      "fp", "fn"}, or with calibrate {"results", "best"} as
+      calibrate_scales returns them
     """
     loader = DataLoader(test_dset, batch_size=1, shuffle=False)
     if calibrate is not None:
         results, best = trainer.calibrate_scales(loader, calibrate)
         return {"results": results, "best": best}
-    (precision, recall, f1), (map50, per_class) = (
-        trainer.metric_and_map_step(loader, iou_threshold=0.5,
-                                    print_hc=True))
+    (tp, fp, fn), (map50, per_class) = trainer.metric_counts_and_map(
+        loader, iou_threshold=0.5, print_hc=True)
+    precision, recall, f1 = calculate_precision_recall_f1(tp, fp, fn)
     return {"precision": precision, "recall": recall, "f1": f1,
-            "map50": map50, "per_class": per_class}
+            "map50": map50, "per_class": per_class, "tp": tp, "fp": fp,
+            "fn": fn}
 
 
 def main(argv=None):

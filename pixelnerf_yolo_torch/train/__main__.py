@@ -53,14 +53,18 @@ def extra_args(parser):
     return parser
 
 
-def build_and_train(args, conf, resume):
+def build_trainer(args, conf, resume, splits=None):
+    """The trainer of the conf over (train, val, test) splits, read from
+    args.datadir unless given (datasets held in memory)."""
     if len(args.gpu_id) > 1:
         raise NotImplementedError(
             "multi-GPU training is not ported yet (ROADMAP.md Queue 1 item "
             "20)")
     args.resume = resume
-    dset, val_dset, _ = get_split_dataset(args.dataset_format, args.datadir,
-                                          conf=conf)
+    if splits is None:
+        splits = get_split_dataset(args.dataset_format, args.datadir,
+                                   conf=conf)
+    dset, val_dset, _ = splits
     print("dset z_near {}, z_far {}, lindisp {}".format(
         dset.z_near, dset.z_far, getattr(dset, "lindisp", False)))
     model = make_model(conf.get_config("model"), device=args.device,
@@ -71,9 +75,12 @@ def build_and_train(args, conf, resume):
     renderer = make_renderer(conf, lindisp=getattr(dset, "lindisp", False),
                              device=args.device)
     nviews = list(map(int, args.nviews.split()))
-    trainer = make_trainer(args, conf, dset, val_dset, model, renderer,
-                           nviews, device=args.device)
-    return trainer.start()
+    return make_trainer(args, conf, dset, val_dset, model, renderer,
+                        nviews, device=args.device)
+
+
+def build_and_train(args, conf, resume):
+    return build_trainer(args, conf, resume).start()
 
 
 def main(argv=None):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..data.loader import DataLoader
+from ..utils.image import write_png
 from ..utils.misc import print_with_time, stall_watchdog_from_env
 from . import checkpoints
 
@@ -400,13 +401,11 @@ class Trainer:
                                 "vis", vis_vals, global_step=step_id
                             )
                         if vis is not None:
-                            import imageio
-
                             vis_u8 = (np.clip(vis, 0, 1) * 255).astype(
                                 np.uint8
                             )
                             os.makedirs(self.visual_path, exist_ok=True)
-                            imageio.imwrite(
+                            write_png(
                                 osp.join(
                                     self.visual_path,
                                     "{:04}_{:04}_vis.png".format(epoch, batch),

@@ -374,7 +374,7 @@ class YOLOTrainer(Trainer):
         )
         return int(tp), int(fp), int(fn)
 
-    def _f1_from_boxes(self, boxes, print_hc=False):
+    def _counts_from_boxes(self, boxes, print_hc=False):
         total_tp = total_fp = total_fn = 0
         for bbox_gt, bbox_pred in boxes:
             tp, fp, fn = self._tp_fp_fn_one(bbox_gt, bbox_pred, print_hc)
@@ -382,11 +382,11 @@ class YOLOTrainer(Trainer):
             total_fp += fp
             total_fn += fn
         print("total_tp", total_tp, "total_fp", total_fp, "total_fn", total_fn)
-        return calculate_precision_recall_f1(total_tp, total_fp, total_fn)
+        return total_tp, total_fp, total_fn
 
     def metric_step(self, data_loader, print_hc=False):
-        return self._f1_from_boxes(self._iter_metric_boxes(data_loader),
-                                   print_hc)
+        return calculate_precision_recall_f1(*self._counts_from_boxes(
+            self._iter_metric_boxes(data_loader), print_hc))
 
     def _map_from_boxes(self, boxes, iou_threshold=0.5):
         per_gt, per_pred = zip(*boxes) if boxes else ((), ())
@@ -444,8 +444,19 @@ class YOLOTrainer(Trainer):
 
         :return ((precision, recall, f1), (mAP, {class: AP}))
         """
+        counts, ap = self.metric_counts_and_map(data_loader, iou_threshold,
+                                                print_hc)
+        return calculate_precision_recall_f1(*counts), ap
+
+    def metric_counts_and_map(self, data_loader, iou_threshold=0.5,
+                              print_hc=False):
+        """``metric_and_map_step`` with the summed TP, FP and FN in place of
+        P/R/F1.
+
+        :return ((TP, FP, FN), (mAP, {class: AP}))
+        """
         boxes = list(self._iter_metric_boxes(data_loader))
-        return (self._f1_from_boxes(boxes, print_hc),
+        return (self._counts_from_boxes(boxes, print_hc),
                 self._map_from_boxes(boxes, iou_threshold))
 
 

@@ -2,10 +2,15 @@
 
 Counterpart of pixelnerf_yolo_tpu/utils/image.py: images flow to the
 device as normalized float32 CHW arrays.  cv2 is an optional import; a
-function that needs it raises when it is missing.
+function that needs it raises when it is missing, except ``cmap``, which
+falls back to numpy; ``write_png`` needs neither cv2 nor imageio, so a
+trainer's visualizations need neither.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -26,12 +31,37 @@ def image_float_to_uint8(img: np.ndarray) -> np.ndarray:
 
 
 def cmap(img: np.ndarray, color_map=None) -> np.ndarray:
-    """Apply a HOT colormap to a float image."""
+    """Apply a HOT colormap to a float image (BGR uint8, as cv2 returns
+    it; without cv2 the HOT ramps in numpy)."""
+    u8 = image_float_to_uint8(img)
     if cv2 is None:
-        raise ImportError("cv2 required for cmap")
+        x = u8.astype(np.float32) / 255.0
+        ramps = [np.clip(4.0 * x - 3.0, 0, 1), np.clip(8 / 3 * x - 1, 0, 1),
+                 np.clip(8 / 3 * x, 0, 1)]
+        return (np.stack(ramps, axis=-1) * 255).astype(np.uint8)
     if color_map is None:
         color_map = cv2.COLORMAP_HOT
-    return cv2.applyColorMap(image_float_to_uint8(img), color_map)
+    return cv2.applyColorMap(u8, color_map)
+
+
+def write_png(path: str, img_u8: np.ndarray) -> None:
+    """Write an (H, W, 3) or (H, W) uint8 image as a PNG (8-bit RGB or
+    grey, unfiltered rows, one zlib stream): no imageio needed."""
+    img = np.ascontiguousarray(img_u8, dtype=np.uint8)
+    h, w = img.shape[:2]
+    color = 2 if img.ndim == 3 else 0
+    raw = b"".join(b"\x00" + row.tobytes() for row in img.reshape(h, -1))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw))
+                + chunk(b"IEND", b""))
 
 
 def image_to_tensor_balanced(img: np.ndarray, image_size: int = 0) -> np.ndarray:

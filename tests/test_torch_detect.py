@@ -119,3 +119,29 @@ def test_device_nms_against_host_quirk(rng):
     kept, valid = tdet.nms_padded(torch.from_numpy(boxes), 0.3, 0.2)
     dev = kept[valid].tolist()
     assert all(b in host for b in dev) and len(host) >= len(dev)
+
+
+@pytest.mark.parametrize("empty", ["pred", "target", "both"])
+def test_tp_fp_fn_padded_no_rows(empty):
+    """A set with no rows at all (a view whose per-scale thresholds keep no
+    box): the counts of the same set given as padding rows only.  The JAX
+    package's nms_padded raises there (argmax of an empty sequence)."""
+    rng = np.random.default_rng(3)
+    target = _boxes(rng, 12, n_pad=8, ties=False)
+    target[:, 1] = np.where(target[:, 1] > 0, 1.0, 0.0)
+    pred = _boxes(rng, 40, n_pad=8)
+    t, p = target, pred
+    t_pad, p_pad = target, pred
+    if empty in ("target", "both"):
+        t, t_pad = target[:0], np.zeros_like(target)
+    if empty in ("pred", "both"):
+        p, p_pad = pred[:0], np.zeros_like(pred)
+    got = tdet.tp_fp_fn_padded(torch.from_numpy(t), torch.from_numpy(p),
+                               0.75, 0.45, 0.2, max_out=32)
+    want = tdet.tp_fp_fn_padded(torch.from_numpy(t_pad),
+                                torch.from_numpy(p_pad), 0.75, 0.45, 0.2,
+                                max_out=32)
+    assert tuple(int(x) for x in got) == tuple(int(x) for x in want)
+    with pytest.raises(ValueError, match="empty"):
+        jdet.tp_fp_fn_padded(jnp.asarray(t), jnp.asarray(p), 0.75, 0.45,
+                             0.2, max_out=32)
