@@ -37,7 +37,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      f32 and bf16, on 40,013 rows (a ragged tail) and at the row counts of
      its launches in the renders above; pre_combine_pe and post_combine
      also at the YOLO widths (bf16 and f32), full_pe too (an NS=1 YOLO
-     render's rows); times of the kernel, the twin and a cuBLAS
+     render's rows); every kernel at the conv encoder's 128-d latent too
+     (bf16 and f32, at phase 14's launch rows); times of the kernel, the
+     twin and a cuBLAS
      addmm chain at the first render launch's rows (TIMING_REPS launches
      per variant), beside the least
      time the card needs for that work, with TFLOP/s, kernel/bound and
@@ -124,10 +126,32 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      converted model's kernel render (YOLO 16,384 rays through
      pre_combine_pe + post_combine; NeRF NS=1 16,384 rays through full_pe)
      bitwise the source model's; then scripts/torch_convergence.py's
-     in-memory YOLO scenes built once (shapes and box count).
+     in-memory YOLO scenes built once (shapes and box count);
+ 14. model configurations, at the flagship's widths: (a) the conv encoder
+     (backbone = conv, 128-d latent) at NS=1 (65,536 rays, full_pe) and
+     NS=2 (16,384 rays, pre_combine_pe + post_combine), bf16 and f32,
+     kernel route against plain at phase 3's limits; (b)
+     encoder.feature_scale 0.5 and 2.0 (NS=1, 16,384 rays, full_pe),
+     the same; (c) the global encoder (resnet34 beside the spatial
+     resnet34, latent 128: the MLP's latent 640 wide) at NS=2, 16,384
+     rays: no launch at use_fused_mlp = auto, kernel and plain settings
+     alike, and card against CPU at 1,024 rays in f32 (1e-4 x max(1,
+     max|cpu|)); (d) ImplicitNet (mlp type = mlp, JAX's defaults) and
+     use_encoder = false, card against CPU likewise; (e) one training step
+     at the train_nerf schema, 2,048 rays, for (a) at NS=1 (full_pe twice)
+     and for (c) (no launch), kernel route against plain at phase 9's
+     limits, with ms/step and peak memory; (f) NDC rays, card against CPU
+     (1e-6);
+ 15. PointRend: the port's predictor (segment/, random weights from seed
+     0, score threshold 0) at detectron2's sizes (shortest edge 800, at
+     most 1333) on a seeded 480x640 photo, on the card against the CPU in
+     f32: FPN levels within 1e-4 x max|cpu|, the same detections paired
+     one to one by class, boxes within 1e-2 px, masks equal on 99.9% of
+     pixels; each detect's seconds.
 The launch counters (per wrapper and per wrapper and variant) are zeroed
-just before each render path (3, 4, 5, 6, 12, 13) and each kernel-route
-training step (8, 9, 10) or evaluation (10, 11) and read just after it; a
+just before each render path (3, 4, 5, 6, 12, 13, 14) and each
+kernel-route training step (8, 9, 10, 14) or evaluation (10, 11) and read
+just after it; a
 kernel of a path that never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
@@ -171,6 +195,10 @@ H, CL, NB = 512, 3, 5
 NERF = {"d_in": 42, "dL": 512, "d_out": 4}
 VIEWDIRS = {"d_in": 78, "dL": 512, "d_out": 4}
 YOLO = {"d_in": 42, "dL": 1792, "d_out": 21}
+# the conv encoder's 128-d latent (phase 14), with and without the PE of
+# the viewdirs in the z-features
+CONV = {"d_in": 42, "dL": 128, "d_out": 4}
+CONV_VD = {"d_in": 78, "dL": 128, "d_out": 4}
 CHECK_ROWS = 40_013
 # kernel vs twin: f32 differs in summation order only; bf16 can flip one
 # bf16 rounding, which later layers carry: tolerance relative to max|ref|
@@ -432,10 +460,12 @@ def check_kernel(kind, spec, dtype_name, rows_list, device):
     return ok, res
 
 
-def check_kernels(device, render_rows, yolo_rows):
+def check_kernels(device, render_rows, yolo_rows, conv_rows):
     """Phase 7.  render_rows[kind] lists the row counts of that kernel's
     launches in the NeRF renders (coarse pass first, where its time is
-    taken); yolo_rows[kind] those of a YOLO render (full_pe: at NS=1)."""
+    taken); yolo_rows[kind] those of a YOLO render (full_pe: at NS=1);
+    conv_rows[kind] those of the conv encoder's renders (phase 14, dL
+    128)."""
     ok, results = True, {}
     for kind in KINDS:
         spec = VIEWDIRS if kind == "pre_combine" else NERF
@@ -452,6 +482,13 @@ def check_kernels(device, render_rows, yolo_rows):
         kok, results[(kind, "yolo_f32")] = check_kernel(
             kind, YOLO, "float32", [CHECK_ROWS, *yolo_rows[kind]], device)
         ok &= kok
+    for kind in KINDS:
+        spec = CONV_VD if kind == "pre_combine" else CONV
+        for dtype_name in ("bfloat16", "float32"):
+            kok, results[(kind, "conv_" + dtype_name)] = check_kernel(
+                kind, spec, dtype_name, [CHECK_ROWS, *conv_rows[kind]],
+                device)
+            ok &= kok
     return ok, results
 
 
@@ -526,7 +563,8 @@ def build_models(device, out_scale=0.05, puts=None,
         perturb_fc1(model, torch.Generator().manual_seed(2))
         with torch.no_grad():
             for mlp in (model.mlp_coarse, model.mlp_fine):
-                if mlp is not None:
+                # (an ImplicitNet field has no lin_out: left as drawn)
+                if getattr(mlp, "lin_out", None) is not None:
                     mlp.lin_out.weight.mul_(out_scale)
         models[dtype_name] = (model, make_renderer(conf, device=device))
     return models
@@ -2862,6 +2900,322 @@ def interchange_path(device):
     return ok, launches
 
 
+# -- phase 14: the model configurations ---------------------------------------
+
+# (a) the conv encoder's NeRF renders: NS=1 through full_pe, NS=2 through
+# pre_combine_pe + post_combine, at the flagship's renders' ray counts
+CONV_RENDERS = [(1, "bfloat16", 65536), (1, "float32", 65536),
+                (2, "bfloat16", 16384), (2, "float32", 16384)]
+# (b) feature_scale on the resnet34 flagship, NS=1
+FEATURE_SCALES = (0.5, 2.0)
+SCALE_RENDERS = [(1, "bfloat16", 16384), (1, "float32", 16384)]
+# (c) the global encoder (resnet34 beside the spatial resnet34, a 128-d
+# global latent: the MLP's latent is 640 wide)
+GLOBAL_PUTS = {"model.use_global_encoder": True,
+               "model.global_encoder": {"backbone": "resnet34",
+                                        "pretrained": False,
+                                        "latent_size": 128}}
+GLOBAL_RENDERS = [(2, "bfloat16", 16384), (2, "float32", 16384)]
+# (d) ImplicitNet with the JAX package's defaults; no spatial encoder
+IMPLICIT_PUTS = {"model.mlp_coarse": {"type": "mlp"},
+                 "model.mlp_fine": {"type": "mlp"}}
+NO_ENCODER_PUTS = {"model.use_encoder": False}
+# card against CPU: rays, field points and the f32 limit, x max(1,
+# max|cpu|)
+CPU_RAYS, CPU_POINTS, CPU_TOL = 1024, 4096, 1e-4
+# (e) one training step at the train_nerf schema
+OPTION_TRAIN_RAYS = 2048
+OPTION_TRAIN_TIMED = 3
+# (f) NDC rays, card against CPU
+NDC_TOL = 1e-6
+
+
+def every_launched(launches, kinds, dtypes=("bfloat16", "float32")) -> bool:
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    return all(launched(launches, k, fm.variant(k, getattr(torch, d))) > 0
+               for k in kinds for d in dtypes)
+
+
+def card_vs_cpu(label, device, ns, puts, n_rays=CPU_RAYS) -> bool:
+    """An f32 render of the flagship with the conf keys of puts, on the
+    card and on the CPU, from the same weights and draws: rgb and depth
+    of both passes within CPU_TOL x max(1, max|cpu|); and both MLPs'
+    field outputs at CPU_POINTS points of the scene, which hold the field
+    where random weights leave a pass all empty or all opaque."""
+    import torch
+
+    from pixelnerf_yolo_torch.config.flagship import flagship_conf
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+
+    model, renderer = build_models(device, puts=puts,
+                                   dtypes=("float32",))["float32"]
+    model.use_fused_mlp = "auto"
+    conf = flagship_conf(compute_dtype="float32")
+    for key, value in puts.items():
+        conf.put(key, value)
+    cpu = make_model(conf.get_config("model"), device="cpu",
+                     load_pretrained=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    images, poses, focal, rays = flagship_scene(ns, n_rays, device)
+    draws = renderer.draw(rays.shape[1], torch.Generator().manual_seed(3),
+                          "cpu")
+    g = torch.Generator().manual_seed(4)
+    xyz = torch.rand((1, CPU_POINTS, 3), generator=g) * 0.8 - 0.4
+    vd = torch.nn.functional.normalize(
+        torch.randn((1, CPU_POINTS, 3), generator=g), dim=-1)
+    with torch.no_grad():
+        cond = model.encode(images, poses, focal)
+        cond_cpu = cpu.encode(images, poses, focal)
+        got = renderer(model, cond, rays, draws=draws)
+        ref = make_renderer(conf, device="cpu")(cpu, cond_cpu, rays.cpu(),
+                                                draws=draws)
+        for coarse in (True, False):
+            got[f"field_{'coarse' if coarse else 'fine'}"] = {
+                "out": model.forward(cond, xyz.to(device), coarse=coarse,
+                                     viewdirs=vd.to(device))}
+            ref[f"field_{'coarse' if coarse else 'fine'}"] = {
+                "out": cpu.forward(cond_cpu, xyz, coarse=coarse,
+                                   viewdirs=vd)}
+    ok = True
+    for p in ("coarse", "fine", "field_coarse", "field_fine"):
+        for k in ref[p]:
+            a, b = got[p][k].float().cpu(), ref[p][k].float()
+            tol = CPU_TOL * max(1.0, b.abs().max().item())
+            err = (a - b).abs().max().item()
+            good = bool(torch.isfinite(a).all()) and err <= tol
+            ok &= good
+            print(f"  {label} NS={ns} f32 {n_rays} rays, card vs CPU "
+                  f"{p}.{k}: max|diff| {err:.3e} tol {tol:.3e} "
+                  f"{'ok' if good else 'FAILED'}", flush=True)
+    del model, cpu
+    torch.cuda.empty_cache()
+    return ok
+
+
+def option_train_step(label, device, dtype_name, tmp, ns, puts, kinds):
+    """Phase 14 (e): one step at the train_nerf schema with OPTION_TRAIN_RAYS
+    rays on each route from the same weights, pixels and draws, held as
+    phase 9 holds them; the kernel route launches each of kinds twice (none
+    when kinds is empty); then ms/step (median of OPTION_TRAIN_TIMED after
+    one warm-up) and peak memory on the kernel route.  Returns (ok,
+    launches of its kernel-route step)."""
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    cdt = getattr(torch, dtype_name)
+    trainer, model, batch, draws = nerf_trainer(
+        device, dtype_name, os.path.join(tmp, label), ns, OPTION_TRAIN_RAYS,
+        puts=puts)
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    pixel_rng = trainer._rng.bit_generator.state
+
+    def restart():
+        model.load_state_dict(init)
+        trainer.init_opt_state(model.parameters())
+        trainer._rng.bit_generator.state = pixel_rng
+
+    kernel, plain = nerf_both_routes(trainer, model, batch, draws, restart)
+    launches = kernel[2]
+    want = {k: 2 for k in kinds}
+    good = (all(launched(launches, k, fm.variant(k, cdt)) == n
+                for k, n in want.items())
+            and sum(launches.values()) == 2 * len(kinds)
+            and sum(plain[2].values()) == 0)
+    print(f"train {label} NS={ns} {dtype_name}: launches of one kernel-route "
+          f"step {launches} (expected {want or 'none'}); plain route "
+          f"{plain[2]} {'ok' if good else 'FAILED'}", flush=True)
+    agree, _ = nerf_agreement(f"{label}, {OPTION_TRAIN_RAYS} rays",
+                              dtype_name, kernel, plain)
+    good &= agree
+    restart()
+    model.use_fused_mlp = "auto"
+    train_steps(trainer, batch, 1, draws=draws)
+    torch.cuda.reset_peak_memory_stats()
+    times, _, _ = train_steps(trainer, batch, OPTION_TRAIN_TIMED,
+                              draws=draws)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label} {dtype_name}: {statistics.median(times):.3f} ms/step "
+          f"median of {OPTION_TRAIN_TIMED} (min {min(times):.3f}, max "
+          f"{max(times):.3f}); peak memory {peak:.2f} GiB", flush=True)
+    del trainer, model, init, kernel, plain
+    torch.cuda.empty_cache()
+    return good, launches
+
+
+def ndc_check(device) -> bool:
+    """Phase 14 (f): NDC rays on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from pixelnerf_yolo_torch.utils.camera import gen_rays
+
+    rng = np.random.default_rng(0)
+    poses = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    poses[:, :3, 3] = rng.normal(size=(2, 3)) * 0.1
+    poses[:, 2, 3] += 2.0
+    p = torch.from_numpy(poses)
+    got = gen_rays(p.to(device), 128, 96, torch.tensor([120.0, 118.0]), 0.5,
+                   3.0, ndc=True).cpu()
+    ref = gen_rays(p, 128, 96, torch.tensor([120.0, 118.0]), 0.5, 3.0,
+                   ndc=True)
+    err = (got - ref).abs().max().item()
+    good = (got.shape == (2, 96, 128, 8) and bool(torch.isfinite(got).all())
+            and err <= NDC_TOL)
+    print(f"  NDC rays (2 x 96 x 128): card vs CPU max|diff| {err:.3e} tol "
+          f"{NDC_TOL} {'ok' if good else 'FAILED'}", flush=True)
+    return good
+
+
+def options_path(device):
+    """Phase 14.  Returns (ok, launches by path)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    ok, paths = True, {}
+    # (a) the conv encoder, kernel route then plain; lin_out keeps its
+    # scale: at 1/20 its random weights leave the scene nearly empty
+    # (mean coarse depth 0.02, 0.25 at 1; an opaque ray reads 0.8-1.8)
+    conv = build_models(device, out_scale=1.0, backbone="conv")
+    out, paths["conv"] = nerf_path(conv, CONV_RENDERS, device, "conv")
+    good = every_launched(paths["conv"], ("full_pe", "pre_combine_pe",
+                                          "post_combine"))
+    if not good:
+        print("FAILED: a kernel of the conv-encoder path was never launched")
+    ok &= good and compare_plain(conv, CONV_RENDERS, out, device, "conv")
+    del conv, out
+    torch.cuda.empty_cache()
+    # (b) feature_scale
+    for scale in FEATURE_SCALES:
+        label = f"feature_scale={scale}"
+        models = build_models(device,
+                              puts={"model.encoder.feature_scale": scale})
+        out, paths[label] = nerf_path(models, SCALE_RENDERS, device, label)
+        good = every_launched(paths[label], ("full_pe",))
+        if not good:
+            print(f"FAILED: full_pe never launched on the {label} path")
+        ok &= good and compare_plain(models, SCALE_RENDERS, out, device,
+                                     label)
+        del models, out
+        torch.cuda.empty_cache()
+    # (c) the global encoder: the kernels do not take its latent
+    models = build_models(device, puts=GLOBAL_PUTS)
+    out, paths["global"] = nerf_path(models, GLOBAL_RENDERS, device,
+                                     "global encoder")
+    good = sum(paths["global"].values()) == 0
+    print(f"  global encoder at use_fused_mlp = auto: "
+          f"{sum(paths['global'].values())} launches (must be 0) "
+          f"{'ok' if good else 'FAILED'}", flush=True)
+    ok &= good and compare_plain(models, GLOBAL_RENDERS, out, device,
+                                 "global encoder")
+    for dtype_name in ("bfloat16", "float32"):
+        model = models[dtype_name][0]
+        ok &= not any(model._fuses(m, ns) for m in (model.mlp_coarse,
+                                                    model.mlp_fine)
+                      for ns in (1, 2))
+    del models, out
+    torch.cuda.empty_cache()
+    ok &= card_vs_cpu("global encoder", device, 2, GLOBAL_PUTS)
+    # (d) ImplicitNet and the encoder-free model (plain route only)
+    ok &= card_vs_cpu("ImplicitNet", device, 1, IMPLICIT_PUTS)
+    ok &= card_vs_cpu("no encoder", device, 1, NO_ENCODER_PUTS)
+    # (e) one training step
+    tmp = tempfile.mkdtemp()
+    try:
+        for dtype_name in ("bfloat16", "float32"):
+            sfx = "" if dtype_name == "bfloat16" else "_f32"
+            good, paths["train_conv" + sfx] = option_train_step(
+                "conv", device, dtype_name, tmp, 1,
+                {"model.encoder.backbone": "conv"}, ("full_pe",))
+            ok &= good
+            good, paths["train_global" + sfx] = option_train_step(
+                "global", device, dtype_name, tmp, 2, GLOBAL_PUTS, ())
+            ok &= good
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (f) NDC
+    ok &= ndc_check(device)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok, paths
+
+
+# -- phase 15: PointRend ------------------------------------------------------
+
+POINTREND_PHOTO = (480, 640)
+FPN_TOL = 1e-4  # x max|cpu| of each level
+BOX_TOL = 1e-2  # px
+MASK_AGREE = 0.999  # share of equal mask pixels (a logit near 0 may flip)
+
+
+def pointrend_path(device) -> bool:
+    """Phase 15: the PointRend predictor at detectron2's sizes on a seeded
+    photo, on the card against the port on the CPU (f32, TF32 off)."""
+    import numpy as np
+    import torch
+
+    from pixelnerf_yolo_torch.segment import PointRendPredictor, random_params
+    from pixelnerf_yolo_torch.segment.backbone import backbone_apply
+
+    t0 = time.perf_counter()
+    params = random_params(np.random.default_rng(0))
+    img = (np.random.default_rng(1).random(POINTREND_PHOTO + (3,))
+           * 255).astype(np.uint8)
+    card = PointRendPredictor(params, score_thresh=0.0, device=device)
+    cpu = PointRendPredictor(params, score_thresh=0.0, device="cpu")
+    ok = True
+    with torch.no_grad():
+        x_card, hw = card._preprocess(img)
+        x_cpu, _ = cpu._preprocess(img)
+        f_card = backbone_apply(card.params["backbone"], x_card)
+        f_cpu = backbone_apply(cpu.params["backbone"], x_cpu)
+    for k in sorted(f_cpu):
+        err = (f_card[k].cpu() - f_cpu[k]).abs().max().item()
+        tol = FPN_TOL * f_cpu[k].abs().max().item()
+        good = err <= tol
+        ok &= good
+        print(f"  PointRend input {tuple(x_card.shape)} (resized to {hw}), "
+              f"FPN {k} {tuple(f_card[k].shape)}: card vs CPU max|diff| "
+              f"{err:.3e} tol {tol:.3e} {'ok' if good else 'FAILED'}",
+              flush=True)
+    del f_card, f_cpu
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = card.detect(img)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ref = cpu.detect(img)
+    t_cpu = time.perf_counter() - t1
+    n = len(ref["boxes"])
+    # pair each card detection with the CPU's of its class and nearest box
+    # (scores that tie to rounding may swap places)
+    dist = np.abs(got["boxes"][:, None, :] - ref["boxes"][None, :, :]).max(-1)
+    dist[got["classes"][:, None] != ref["classes"][None, :]] = np.inf
+    pair = dist.argmin(1) if n else np.zeros(0, np.int64)
+    one_to_one = len(set(pair.tolist())) == n == len(got["boxes"])
+    box_err = float(dist[np.arange(len(pair)), pair].max()) if n else 0.0
+    same = (got["masks"] == ref["masks"][pair]).mean() if n else 1.0
+    good = (n > 0 and one_to_one and box_err <= BOX_TOL
+            and same >= MASK_AGREE)
+    ok &= good
+    print(f"  PointRend {POINTREND_PHOTO} photo, score_thresh 0: "
+          f"{len(got['boxes'])} detections on the card, {n} on the CPU, "
+          f"paired one to one by class: {one_to_one}; box max|diff| "
+          f"{box_err:.3e} px (tol {BOX_TOL}); masks equal on "
+          f"{100 * same:.4f}% of pixels (min {100 * MASK_AGREE}%); detect "
+          f"{t_card:.3f} s on the card, {t_cpu:.3f} s on the CPU "
+          f"{'ok' if good else 'FAILED'}", flush=True)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -2888,7 +3242,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-13; prints the kernels line; True when every check held."""
+    """Phases 2-15; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -2966,10 +3320,17 @@ def run(device) -> bool:
     yolo_rows = {"full_pe": [cb_ns1 * k_yolo],
                  "pre_combine_pe": [yolo_cb * k_yolo * 3],
                  "post_combine": [yolo_cb * k_yolo]}
+    # the conv encoder's renders (phase 14 a) at its 128-d latent
+    cc1 = r._chunk_rays(CONV_RENDERS[0][2], 1, latent_width=CONV["dL"])
+    cc2 = r._chunk_rays(CONV_RENDERS[2][2], 2, latent_width=CONV["dL"])
+    conv_rows = {"full_pe": [cc1 * k for k in ks],
+                 "pre_combine_pe": [cc2 * k * 2 for k in ks],
+                 "post_combine": [cc2 * k for k in ks],
+                 "pre_combine": [cc2 * k * 2 for k in ks]}
     del nerf, yolo, viewdirs
     torch.cuda.empty_cache()
 
-    kok, res = check_kernels(device, render_rows, yolo_rows)
+    kok, res = check_kernels(device, render_rows, yolo_rows, conv_rows)
     ok &= kok
 
     tok, train_launches, _ = train_path(device)
@@ -2988,13 +3349,16 @@ def run(device) -> bool:
     ok &= sok
     iok, interchange_launches = interchange_path(device)
     ok &= iok
+    ook, option_launches = options_path(device)
+    ok &= ook
+    ok &= pointrend_path(device)
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
              "train_step": train_launches["bfloat16"],
              "train_step_f32": train_launches["float32"],
              **nerf_train_launches, **ms_launches, **eval_launches,
-             **serve_launches, **interchange_launches}
+             **serve_launches, **interchange_launches, **option_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []
@@ -3024,7 +3388,9 @@ def run(device) -> bool:
                         **{k: f[k] for k in timed + ("variant",)}},
         }
         for key, label in (("yolo", "yolo_bfloat16"),
-                           ("yolo_f32", "yolo_float32")):
+                           ("yolo_f32", "yolo_float32"),
+                           ("conv_bfloat16", "dL128_bfloat16"),
+                           ("conv_float32", "dL128_float32")):
             if (name, key) in res:
                 entry[label] = {k: res[(name, key)][k] for k in timed}
         kernels.append(entry)

@@ -12,16 +12,25 @@ reference PixelNeRFNet key names, so that the JAX package's
   mlp_*/lin_in, lin_out, lin_z_N, block_N   -> mlp_*.lin_in, lin_out,
                                                lin_z.N, blocks.N
   mlp_*/scale_z_N (SPADE)                   -> mlp_*.scale_z.N
-The custom ELAN backbone has no reference key names (the reference's
-external YOLOv7 is not vendored), so its port modules carry the flax names
-and a flax path maps onto its key by joining it with dots:
+  mlp_*/lin_N (ImplicitNet)                 -> mlp_*.linN
+  global_encoder/model/*                    -> global_encoder.model.*, as
+                                               encoder/model/* above
+  global_encoder/fc                         -> global_encoder.fc
+A ResNet built with another norm_type has GroupNorm_k in place of
+BatchNorm_k (scale and bias only; none with "instance" or "none"), mapped
+to the same bn1 / bn2 / downsample.1.
+The custom ELAN backbone and the conv encoder have no reference key names
+(the reference's external YOLOv7 is not vendored, its ConvEncoder is never
+built), so their port modules carry the flax names and a flax path maps
+onto its key by joining it with dots:
 
   encoder/model/ConvBnAct_i/{Conv_0, BatchNorm_0}
   encoder/model/ELANBlock_j/ConvBnAct_k/{Conv_0, BatchNorm_0}
+  encoder/model/{Conv_0 .. Conv_8, GroupNorm_0 .. GroupNorm_7}  (conv)
 
 Dense kernels (in, out) become weights (out, in); conv kernels HWIO become
 OIHW; BatchNorm scale/bias/mean/var become weight/bias/running_mean/
-running_var.
+running_var; GroupNorm scale/bias become weight/bias.
 
 Two files reach a port checkpoint (``checkpoints/<name>/pixel_nerf_latest``,
 what ``train.checkpoints.load_weights``, the evaluation CLIs and serve.py
@@ -89,13 +98,25 @@ def _dense(sd: dict, key: str, p: dict):
         sd[key + ".bias"] = _t(p["bias"])
 
 
-_BLOCK_BN = {"BatchNorm_0": "bn1", "BatchNorm_1": "bn2",
-             "BatchNorm_2": "downsample.1"}
+def _gn(sd: dict, key: str, p: dict):
+    sd[key + ".weight"] = _t(p["scale"])
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+_BLOCK_BN = {"_0": "bn1", "_1": "bn2", "_2": "downsample.1"}
 
 
 def _resnet(sd: dict, prefix: str, params: dict, stats: dict):
+    """A ResNet trunk; its norms BatchNorm_k (with statistics) or
+    GroupNorm_k (scale and bias), or none (instance, none)."""
+    def norm(key, p, s, suffix):
+        if "BatchNorm" + suffix in p:
+            _bn(sd, key, p["BatchNorm" + suffix], s["BatchNorm" + suffix])
+        elif "GroupNorm" + suffix in p:
+            _gn(sd, key, p["GroupNorm" + suffix])
+
     _conv(sd, prefix + "conv1", params["conv1"])
-    _bn(sd, prefix + "bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    norm(prefix + "bn1", params, stats, "_0")
     for name, bp in params.items():
         m = re.fullmatch(r"layer(\d)_(\d+)", name)
         if m is None:
@@ -105,9 +126,23 @@ def _resnet(sd: dict, prefix: str, params: dict, stats: dict):
         _conv(sd, key + "conv2", bp["conv2"])
         if "downsample_conv" in bp:
             _conv(sd, key + "downsample.0", bp["downsample_conv"])
-        for bn_name, torch_name in _BLOCK_BN.items():
-            if bn_name in bp:
-                _bn(sd, key + torch_name, bp[bn_name], stats[name][bn_name])
+        for suffix, torch_name in _BLOCK_BN.items():
+            norm(key + torch_name, bp, stats.get(name, {}), suffix)
+
+
+def _conv_encoder(sd: dict, prefix: str, params: dict):
+    """The conv encoder's Conv_i (kernel, Conv_8 also a bias) and
+    GroupNorm_i leaves; raises on a leaf it does not map."""
+    for name, p in params.items():
+        if re.fullmatch(r"Conv_\d", name):
+            _conv(sd, prefix + name, p)
+            if "bias" in p:
+                sd[prefix + name + ".bias"] = _t(p["bias"])
+        elif re.fullmatch(r"GroupNorm_\d", name):
+            _gn(sd, prefix + name, p)
+        else:
+            raise NotImplementedError(f"{prefix}{name} has no port "
+                                      "counterpart")
 
 
 def _yolo_backbone(sd: dict, prefix: str, params: dict, stats: dict):
@@ -127,10 +162,13 @@ def _yolo_backbone(sd: dict, prefix: str, params: dict, stats: dict):
 
 
 def resnetfc_state_dict(params: dict, prefix: str = "") -> dict:
-    """Flax ResnetFC params -> port ResnetFC state_dict entries."""
+    """Flax ResnetFC (or ImplicitNet: lin_N) params -> port state_dict
+    entries."""
     sd: dict = {}
     for name, p in params.items():
-        if name in ("lin_in", "lin_out"):
+        if m := re.fullmatch(r"lin_(\d+)", name):
+            _dense(sd, f"{prefix}lin{m[1]}", p)
+        elif name in ("lin_in", "lin_out"):
             _dense(sd, prefix + name, p)
         elif m := re.fullmatch(r"(lin_z|scale_z)_(\d+)", name):
             _dense(sd, f"{prefix}{m[1]}.{m[2]}", p)
@@ -146,15 +184,25 @@ def from_jax_variables(variables: dict) -> dict:
     """JAX ``{"params", "batch_stats"}`` pytree -> port state_dict (CPU)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    extra = set(params) - {"encoder", "mlp_coarse", "mlp_fine"}
+    extra = set(params) - {"encoder", "global_encoder", "mlp_coarse",
+                           "mlp_fine"}
     if extra:
         raise NotImplementedError(f"{sorted(extra)} have no port counterpart")
     sd: dict = {}
-    enc, enc_stats = params["encoder"]["model"], stats["encoder"]["model"]
+    enc = params["encoder"]["model"]
+    enc_stats = stats.get("encoder", {}).get("model", {})
     if "ConvBnAct_0" in enc:
         _yolo_backbone(sd, "encoder.model.", enc, enc_stats)
+    elif "Conv_0" in enc:
+        _conv_encoder(sd, "encoder.model.", enc)
     else:
         _resnet(sd, "encoder.model.", enc, enc_stats)
+    if "global_encoder" in params:
+        glob = params["global_encoder"]
+        _resnet(sd, "global_encoder.model.", glob["model"],
+                stats["global_encoder"]["model"])
+        if "fc" in glob:
+            _dense(sd, "global_encoder.fc", glob["fc"])
     for name in ("mlp_coarse", "mlp_fine"):
         if name in params:
             sd.update(resnetfc_state_dict(params[name], name + "."))
@@ -292,15 +340,15 @@ def read_flax_msgpack(path: str) -> dict:
 _BN = ("weight", "bias", "running_mean", "running_var")
 
 
-def _reference_encoder_keys(sd: dict, backbone: str) -> list:
-    """The encoder.model.* keys that the JAX package's
-    ``port_torch_state_dict`` reads (torchvision names)."""
+def _reference_encoder_keys(sd: dict, backbone: str,
+                            p: str = "encoder.model.") -> list:
+    """The ``p``* keys that the JAX package's ``port_torch_state_dict``
+    reads (torchvision names)."""
     from .nn.resnet import STAGE_SIZES
 
     if backbone not in STAGE_SIZES:
         raise ValueError(f"the checkpoint has a torchvision encoder, the "
                          f"conf's backbone is {backbone!r}")
-    p = "encoder.model."
     keys = [p + "conv1.weight"] + [f"{p}bn1.{k}" for k in _BN]
     for stage, n_blocks in enumerate(STAGE_SIZES[backbone], start=1):
         for i in range(n_blocks):
@@ -348,19 +396,17 @@ def from_reference_state_dict(sd: dict, model) -> dict:
 
     Reads exactly the keys the JAX package's ``convert_reference_state_dict``
     reads: the torchvision encoder (when the file has one) and each
-    ResnetFC.  Every other key (the non-persistent buffers
+    ResnetFC, and the global encoder (``global_encoder.model.*`` as a
+    torchvision trunk of the model's global backbone, which is the JAX
+    converter's one ``backbone`` when the two encoders share it, and
+    ``global_encoder.fc.*``).  Every other key (the non-persistent buffers
     ``REFERENCE_BUFFERS``, BatchNorm's num_batches_tracked, a custom
     backbone's weights) is ignored, and its name printed.  A file without
     a torchvision encoder (the reference's external YOLOv7 "custom"
     backbone) keeps the model's encoder with a warning, as the JAX package
     keeps its random init; the model's values fill every key the file
-    does not give, listed in a warning.  A global encoder raises: the port
-    has none yet.
+    does not give, listed in a warning.
     """
-    if any(k.startswith("global_encoder.") for k in sd):
-        raise NotImplementedError(
-            "the checkpoint has a global encoder (global_encoder.*), which "
-            "the port does not have yet (ROADMAP.md Queue 1 item 22)")
     read = []
     own = model.state_dict()
     seeded = ()
@@ -374,6 +420,15 @@ def from_reference_state_dict(sd: dict, model) -> dict:
     for name in ("mlp_coarse", "mlp_fine"):
         if f"{name}.lin_out.weight" in sd:
             read += _reference_resnetfc_keys(sd, name + ".")
+    if "global_encoder.model.conv1.weight" in sd:
+        glob = model.global_encoder
+        read += _reference_encoder_keys(
+            sd, glob.backbone if glob is not None else "resnet34",
+            "global_encoder.model.")
+        if "global_encoder.fc.weight" in sd:
+            read += ["global_encoder.fc.weight"]
+            if "global_encoder.fc.bias" in sd:
+                read += ["global_encoder.fc.bias"]
     unused = [k for k in read if k not in own]
     ignored = sorted(set(sd) - set(read)) + unused
     if ignored:

@@ -9,6 +9,14 @@ it.  Mode quirks kept from the reference:
     uv = (+x/z, +y/z); latents zeroed where camera z >= 0, then where NaN;
     the raw (SB, B, 7 x anchors) field output
 
+The field MLP is a ResnetFC (``mlp.type = resnet``) or an ImplicitNet
+(``type = mlp``, the default; nn/mlp.py, plain only).  Its input is
+``[global latent, spatial latent, z-features]``: the global latent with
+``model.use_global_encoder`` (an ``ImageEncoder`` of the source views,
+repeated per point), the spatial one unless ``model.use_encoder = false``
+(the encoder still runs in ``encode``, as in the JAX package, but the
+field neither gathers nor takes it; ``use_xyz`` must be on then).
+
 The field MLP runs through the fused kernels of ops/field_mlp.py when
 ``model.use_fused_mlp`` is auto or true and ``_can_fuse`` holds: with the
 positional encoding inside the kernel when ``_pe_fusible`` holds
@@ -64,11 +72,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..nn.code import PositionalEncoding
+from ..nn.mlp import ImplicitNet
 from ..nn.resnetfc import ResnetFC, block_out_contexts
 from ..ops import field_mlp
 from ..ops.grid_sample import quantize_rows_int8
 from ..utils.indexing import repeat_interleave
-from .encoder import index_latent, make_encoder
+from .encoder import ImageEncoder, index_latent, make_encoder
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -111,12 +120,15 @@ def _dots_contexts():
 def make_mlp(conf, d_in: int, d_latent: int = 0, allow_empty: bool = False,
              dtype: torch.dtype = torch.float32, generator=None):
     mlp_type = conf.get_string("type", "mlp")
+    if mlp_type == "mlp":
+        return ImplicitNet.from_conf(conf, d_in, d_latent=d_latent,
+                                     generator=generator)
     if mlp_type == "resnet":
         return ResnetFC.from_conf(conf, d_in, d_latent=d_latent, dtype=dtype,
                                   generator=generator)
     if mlp_type == "empty" and allow_empty:
         return None
-    raise NotImplementedError(f"MLP type {mlp_type!r} is not ported")
+    raise NotImplementedError("Unsupported MLP type")
 
 
 @dataclasses.dataclass
@@ -138,11 +150,8 @@ class CondState:
     latent_projected: bool = False
     # model.mlp_int8 (inference): the field's hidden layers in int8
     mlp_int8: bool = False
-
-
-_UNPORTED = {
-    "use_global_encoder": "the global encoder",
-}
+    # model.use_global_encoder: the global encoder's (SB*NS, Lg) f32 latent
+    global_latent: Optional[torch.Tensor] = None
 
 
 class PixelNeRF(nn.Module):
@@ -160,9 +169,6 @@ class PixelNeRF(nn.Module):
                  stop_encoder_grad: bool = False,
                  load_pretrained: bool = True):
         super().__init__()
-        for key, what in _UNPORTED.items():
-            if conf.get_bool(key, False):
-                raise NotImplementedError(f"{what} is not ported yet")
         self.compute_dtype = DTYPES[conf.get_string("compute_dtype", "float32")]
         # model.remat: the field runs under a non-reentrant checkpoint in
         # training; remat_policy selects what it keeps ("", "full",
@@ -179,9 +185,6 @@ class PixelNeRF(nn.Module):
                 "there is no checkpoint without remat)"
             )
         self.use_encoder = conf.get_bool("use_encoder", True)
-        if not self.use_encoder:
-            raise NotImplementedError("models without the encoder are not "
-                                      "ported yet")
         self.encoder = make_encoder(conf.get_config("encoder"),
                                     dtype=self.compute_dtype,
                                     generator=generator)
@@ -189,12 +192,14 @@ class PixelNeRF(nn.Module):
             _maybe_load_pretrained(self.encoder)
         self.stop_encoder_grad = stop_encoder_grad
         self.use_xyz = conf.get_bool("use_xyz", False)
+        if not (self.use_encoder or self.use_xyz):
+            raise ValueError("a model without the encoder needs use_xyz")
         self.normalize_z = conf.get_bool("normalize_z", True)
         self.use_code = conf.get_bool("use_code", False)
         self.use_code_viewdirs = conf.get_bool("use_code_viewdirs", True)
         self.use_viewdirs = conf.get_bool("use_viewdirs", False)
 
-        d_latent = self.encoder.latent_size
+        d_latent = self.encoder.latent_size if self.use_encoder else 0
         d_in = 3 if self.use_xyz else 1
         if self.use_viewdirs and self.use_code_viewdirs:
             d_in += 3
@@ -205,6 +210,15 @@ class PixelNeRF(nn.Module):
             d_in = self.code.d_out
         if self.use_viewdirs and not self.use_code_viewdirs:
             d_in += 3
+
+        self.global_encoder = None
+        if conf.get_bool("use_global_encoder", False):
+            self.global_encoder = ImageEncoder.from_conf(
+                conf.get_config("global_encoder"), generator=generator)
+            if load_pretrained and conf.get_bool(
+                    "global_encoder.pretrained", True):
+                _maybe_load_pretrained(self.global_encoder, "global_encoder")
+            d_latent += self.global_encoder.latent_size
 
         self.latent_int8 = conf.get_bool("latent_int8", False)
         self.mlp_int8 = conf.get_bool("mlp_int8", False)
@@ -247,7 +261,8 @@ class PixelNeRF(nn.Module):
         :param c None or (2,) or (SB, 2)
         :param train BatchNorm on the batch's statistics, updating the
           running ones (not with stop_encoder_grad, which also detaches the
-          latent); the int8 serving modes off
+          spatial latent; the global encoder's gradient flows either way,
+          as in the JAX package); the int8 serving modes off
         """
         dev = self.device
         f32 = torch.float32
@@ -308,19 +323,25 @@ class PixelNeRF(nn.Module):
             elif c.ndim == 1:
                 c = c[None] if c.shape[0] == 2 else c[:, None].expand(
                     c.shape[0], 2)
+        global_latent = None
+        if self.global_encoder is not None:
+            global_latent = self.global_encoder(
+                x, train=train and not self.stop_encoder_grad)
         return CondState(
             latent_flat=latent_flat, latent_hw=(Hl, Wl), poses=w2c,
             focal=focal, c=c, image_size=image_size,
             num_views_per_obj=num_views_per_obj, latent_scales=latent_scales,
             latent_projected=latent_projected,
             mlp_int8=self.mlp_int8 and not train,
+            global_latent=global_latent,
         )
 
     def _preprojects(self, ns: int) -> bool:
         """Whether encode pre-projects the latent table through
         mlp_coarse's lin_z weights: the JAX package's rule (bf16, one
         ResnetFC MLP with a latent and a block before the combine, no SPADE,
-        no int8 table, ``model.latent_preproject``), with its clause
+        no int8 table, the spatial encoder and no global one,
+        ``model.latent_preproject``), with its clause
         "``use_fused_mlp`` not true" read as "the field does not take the
         kernel route at this NS": the kernels take the raw latent."""
         mlp = self.mlp_coarse
@@ -332,6 +353,8 @@ class PixelNeRF(nn.Module):
             and mlp.n_lin_z > 0
             and not mlp.use_spade
             and not self.latent_int8
+            and self.use_encoder
+            and self.global_encoder is None
             and self.latent_preproject
             and not self._fuses(mlp, ns)
         )
@@ -359,7 +382,9 @@ class PixelNeRF(nn.Module):
             and not mlp.use_spade
             and mlp.combine_type == "average"
             and mlp.d_latent > 0
+            and self.use_encoder
             and self.d_in > 0
+            and self.global_encoder is None
             and (ns == 1 or mlp.combine_layer < mlp.n_blocks)
             and all(field_mlp.fits(self.d_in, mlp.d_latent, mlp.d_hidden,
                                    self.compute_dtype, m, mlp.d_out)
@@ -370,8 +395,9 @@ class PixelNeRF(nn.Module):
         """Whether the field of ``mlp`` takes the kernel route at ns source
         views: ``_can_fuse`` for the route's first kernel, and no
         ``model.mlp_int8`` (the kernels have no int8 path)."""
-        return not self.mlp_int8 and self._can_fuse(
-            mlp, ns, self._first_kernel(mlp, ns, self._pe_fusible()))
+        return (not self.mlp_int8 and isinstance(mlp, ResnetFC)
+                and self._can_fuse(mlp, ns, self._first_kernel(
+                    mlp, ns, self._pe_fusible())))
 
     @staticmethod
     def _first_kernel(mlp, ns: int, pe_fusible: bool) -> str:
@@ -405,7 +431,8 @@ class PixelNeRF(nn.Module):
         xyz_rot = torch.einsum("bij,bkj->bki", cond.poses[:, :3, :3], xyz_rep)
         return xyz_rot, xyz_rot + cond.poses[:, None, :3, 3]
 
-    def project_latent(self, cond: CondState, xyz: torch.Tensor) -> torch.Tensor:
+    def project_latent(self, cond: CondState,
+                       xyz: torch.Tensor) -> Optional[torch.Tensor]:
         """Per-point conditioning: project xyz into each source camera and
         sample the pixel-aligned latent.
 
@@ -413,8 +440,10 @@ class PixelNeRF(nn.Module):
         :return (SB*NS, B, C) latents (YOLO: zeroed behind z = 0 and NaN;
           C = n_lin_z * d_hidden when the table is pre-projected, and the
           zeroed rows then get exactly the lin_z biases, as zeroed latents
-          do; bf16 from an int8 table)
+          do; bf16 from an int8 table), or None without the encoder
         """
+        if not self.use_encoder:
+            return None
         NS = cond.num_views_per_obj
         _, xyz_cam = self._to_camera(cond, xyz)
         if self.yolo:
@@ -498,7 +527,8 @@ class PixelNeRF(nn.Module):
 
         if latent is None:
             latent = self.project_latent(cond, xyz)
-        latent = latent.reshape(-1, latent.shape[-1])
+        if latent is not None:
+            latent = latent.reshape(-1, latent.shape[-1])
 
         if fuse_pe:
             # PE runs inside the kernel: ship only [xyz_rot, viewdirs_rot]
@@ -522,12 +552,22 @@ class PixelNeRF(nn.Module):
                 out = field_mlp.fused_field(mlp, latent, z_feature, NS, B,
                                             self.compute_dtype)
             else:
-                # concatenated in f32, cast to the compute dtype by the MLP
-                mlp_input = torch.cat([latent.float(), z_feature.float()],
-                                      dim=-1)
-                out = mlp(mlp_input, combine_inner_dims=(NS, B),
-                          latent_projected=cond.latent_projected,
-                          int8=cond.mlp_int8)
+                # [global, spatial latent, z] concatenated in f32, cast to
+                # the compute dtype by a ResnetFC
+                parts = [z_feature.float()]
+                if latent is not None:
+                    parts.insert(0, latent.float())
+                if cond.global_latent is not None:
+                    rows = parts[0].shape[0] // cond.global_latent.shape[0]
+                    parts.insert(0, repeat_interleave(
+                        cond.global_latent.float(), rows))
+                mlp_input = torch.cat(parts, dim=-1)
+                if isinstance(mlp, ImplicitNet):
+                    out = mlp(mlp_input, combine_inner_dims=(NS, B))
+                else:
+                    out = mlp(mlp_input, combine_inner_dims=(NS, B),
+                              latent_projected=cond.latent_projected,
+                              int8=cond.mlp_int8)
         out = out.reshape(-1, B, self.d_out)
         if self.yolo:
             return out

@@ -9,6 +9,14 @@ Precision: parameters are f32.  Convolutions run in the compute dtype;
 BatchNorm normalizes in f32 as ``(x - mean) * (scale * rsqrt(var + eps)) +
 bias`` and casts back to the compute dtype.
 
+``norm_type`` (JAX ``make_norm``) picks the trunk's normalization: batch
+(the default), group (``nn.GroupNorm`` of 32 groups with scale and bias,
+flax's eps 1e-6), instance (one group per channel, no scale, no bias, eps
+1e-6) or none.  The group norms hold no running statistics; they
+normalize each sample in f32 with ``torch.var_mean``'s biased variance
+(``group_norm``) and, as flax's GroupNorm promotes to its f32 parameters,
+return f32 when they have a scale and bias, the compute dtype when not.
+
 BatchNorm follows flax ``nn.BatchNorm``: with ``train=False`` it uses the
 running statistics; with ``train=True`` the batch's, in f32, with the
 biased variance (divided by N), and it updates the running statistics as
@@ -33,6 +41,22 @@ STAGE_SIZES = {"resnet18": [2, 2, 2, 2], "resnet34": [3, 4, 6, 3]}
 STAGE_WIDTHS = [64, 64, 128, 256, 512]
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
+GN_EPS = 1e-6  # flax nn.GroupNorm's epsilon
+NORM_TYPES = ("batch", "instance", "group", "none")
+
+
+def make_norm(norm_type: str, channels: int, groups: int = 32) -> nn.Module:
+    """The norm module of ``norm_type`` over ``channels`` (JAX
+    ``make_norm``); ``norm`` applies it."""
+    if norm_type == "batch":
+        return nn.BatchNorm2d(channels, eps=BN_EPS)
+    if norm_type == "instance":
+        return nn.GroupNorm(channels, channels, eps=GN_EPS, affine=False)
+    if norm_type == "group":
+        return nn.GroupNorm(groups, channels, eps=GN_EPS)
+    if norm_type == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"norm layer [{norm_type}] is not found")
 
 
 def conv(x: torch.Tensor, m: nn.Conv2d, cdt: torch.dtype) -> torch.Tensor:
@@ -57,33 +81,58 @@ def batch_norm(x: torch.Tensor, m: nn.BatchNorm2d, cdt: torch.dtype,
     return (y + m.bias[:, None, None]).to(cdt)
 
 
+def group_norm(x: torch.Tensor, m: nn.GroupNorm,
+               cdt: torch.dtype) -> torch.Tensor:
+    """GroupNorm of an NCHW map in f32, flax's order of operations:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    B, C = x.shape[:2]
+    xg = x.float().reshape(B, m.num_groups, -1)
+    var, mean = torch.var_mean(xg, dim=-1, unbiased=False, keepdim=True)
+    y = (xg - mean).reshape(x.shape)
+    mul = torch.rsqrt(var + m.eps).expand(B, m.num_groups,
+                                          C // m.num_groups).reshape(B, C)
+    if not m.affine:
+        return (y * mul[:, :, None, None]).to(cdt)
+    y = y * (mul * m.weight)[:, :, None, None]
+    return y + m.bias[:, None, None]
+
+
+def norm(x: torch.Tensor, m: nn.Module, cdt: torch.dtype, train: bool = False,
+         momentum: float = BN_MOMENTUM) -> torch.Tensor:
+    """Apply a ``make_norm`` module: BatchNorm (``batch_norm``), a group
+    norm (``group_norm``, the same in train and eval) or none."""
+    if isinstance(m, nn.BatchNorm2d):
+        return batch_norm(x, m, cdt, train, momentum)
+    if isinstance(m, nn.GroupNorm):
+        return group_norm(x, m, cdt)
+    return x
+
+
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: conv-bn-relu-conv-bn + (projected) identity."""
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 norm_type: str = "batch"):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = make_norm(norm_type, planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = make_norm(norm_type, planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes, eps=BN_EPS),
+                make_norm(norm_type, planes),
             )
 
     def forward(self, x: torch.Tensor, cdt: torch.dtype,
                 train: bool = False) -> torch.Tensor:
-        out = torch.relu(batch_norm(conv(x, self.conv1, cdt), self.bn1, cdt,
-                                    train))
-        out = batch_norm(conv(out, self.conv2, cdt), self.bn2, cdt, train)
+        out = torch.relu(norm(conv(x, self.conv1, cdt), self.bn1, cdt, train))
+        out = norm(conv(out, self.conv2, cdt), self.bn2, cdt, train)
         identity = x
         if self.downsample is not None:
-            identity = batch_norm(
-                conv(x, self.downsample[0], cdt), self.downsample[1], cdt,
-                train
-            )
+            identity = norm(conv(x, self.downsample[0], cdt),
+                            self.downsample[1], cdt, train)
         return torch.relu(out + identity)
 
 
@@ -93,7 +142,7 @@ class ResNetFeatures(nn.Module):
     are built."""
 
     def __init__(self, backbone: str = "resnet34", num_layers: int = 4,
-                 use_first_pool: bool = True,
+                 use_first_pool: bool = True, norm_type: str = "batch",
                  generator: torch.Generator | None = None):
         super().__init__()
         if backbone not in STAGE_SIZES:
@@ -101,7 +150,7 @@ class ResNetFeatures(nn.Module):
         self.num_layers = num_layers
         self.use_first_pool = use_first_pool
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = make_norm(norm_type, 64)
         inplanes = 64
         for stage_idx, (planes, n_blocks) in enumerate(
             zip([64, 128, 256, 512], STAGE_SIZES[backbone]), start=1
@@ -109,12 +158,13 @@ class ResNetFeatures(nn.Module):
             if num_layers <= stage_idx:
                 break
             stride = 1 if stage_idx == 1 else 2
-            blocks = [BasicBlock(inplanes, planes, stride)]
-            blocks += [BasicBlock(planes, planes) for _ in range(n_blocks - 1)]
+            blocks = [BasicBlock(inplanes, planes, stride, norm_type)]
+            blocks += [BasicBlock(planes, planes, norm_type=norm_type)
+                       for _ in range(n_blocks - 1)]
             self.add_module(f"layer{stage_idx}", nn.Sequential(*blocks))
             inplanes = planes
         # torchvision's init (kaiming normal, fan_out) from the generator;
-        # BatchNorm starts at weight 1, bias 0, mean 0, var 1
+        # a norm starts at weight 1, bias 0 (BatchNorm: mean 0, var 1)
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, nn.Conv2d):
@@ -124,8 +174,7 @@ class ResNetFeatures(nn.Module):
 
     def forward(self, x: torch.Tensor, cdt: torch.dtype,
                 train: bool = False) -> list[torch.Tensor]:
-        x = torch.relu(batch_norm(conv(x, self.conv1, cdt), self.bn1, cdt,
-                                  train))
+        x = torch.relu(norm(conv(x, self.conv1, cdt), self.bn1, cdt, train))
         latents = [x]
         if self.num_layers > 1 and self.use_first_pool:
             x = F.max_pool2d(x, 3, 2, 1)

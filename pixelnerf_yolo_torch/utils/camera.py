@@ -1,6 +1,6 @@
 """Camera ray generation.
 
-Counterpart of ``gen_rays``, ``unproj_map``, ``_expand_focal``,
+Counterpart of ``gen_rays``, ``ndc_rays``, ``unproj_map``, ``_expand_focal``,
 ``gen_rays_yolo``, ``gen_rays_np`` and ``gen_rays_yolo_np`` in
 pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
 OpenGL-style camera (x right, y up, z backward) and camera-to-world poses.
@@ -50,10 +50,10 @@ def gen_rays(poses, width: int, height: int, focal, z_near, z_far, c=None,
     """Camera rays for NeRF mode.
 
     :param poses (B, 4, 4) camera-to-world; the rays live on its device
+    :param ndc the rays mapped into NDC space (``ndc_rays`` with near 1),
+      with near 0 and far 1
     :return (B, H, W, 8) = [origin(3), unit dir(3), near(1), far(1)]
     """
-    if ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
     poses = torch.as_tensor(poses, dtype=torch.float32)
     device = poses.device
     n = poses.shape[0]
@@ -61,11 +61,34 @@ def gen_rays(poses, width: int, height: int, focal, z_near, z_far, c=None,
     dirs_cam = unproj_map(width, height, focal, c=c, device=device)
     centers = poses[:, None, None, :3, 3].expand(n, height, width, 3)
     raydirs = torch.einsum("bij,hwj->bhwi", poses[:, :3, :3], dirs_cam)
+    if ndc:
+        z_near, z_far = 0.0, 1.0
+        centers, raydirs = ndc_rays(width, height, focal, 1.0, centers,
+                                    raydirs)
     nears = torch.full((n, height, width, 1), float(z_near),
                        dtype=torch.float32, device=device)
     fars = torch.full((n, height, width, 1), float(z_far),
                       dtype=torch.float32, device=device)
     return torch.cat([centers, raydirs, nears, fars], dim=-1)
+
+
+def ndc_rays(width, height, focal, near, rays_o, rays_d):
+    """Shift rays to the z = -near plane and map them to NDC space (the
+    standard NeRF transform; focal a scalar or (fx, fy))."""
+    focal = torch.as_tensor(focal, dtype=torch.float32, device=rays_o.device)
+    fx = focal if focal.ndim == 0 else focal.reshape(-1)[0]
+    fy = focal if focal.ndim == 0 else focal.reshape(-1)[-1]
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox, oy, oz = rays_o.unbind(-1)
+    dx, dy, dz = rays_d.unbind(-1)
+    o = torch.stack([-fx * 2.0 / width * ox / oz,
+                     -fy * 2.0 / height * oy / oz,
+                     1.0 + 2.0 * near / oz], dim=-1)
+    d = torch.stack([-fx * 2.0 / width * (dx / dz - ox / oz),
+                     -fy * 2.0 / height * (dy / dz - oy / oz),
+                     -2.0 * near / oz], dim=-1)
+    return o, d
 
 
 def gen_rays_yolo(poses, width: int, height: int, focal, c, z_near,

@@ -237,13 +237,36 @@ def test_custom_backbone_keeps_seeded_encoder(tmp_path):
         torch.testing.assert_close(got[k], want, rtol=0, atol=0, msg=k)
 
 
-def test_global_encoder_refused(nerf_side):
-    conf, _, v = nerf_side
-    model = port_model(conf, v)
-    sd = dict(model.state_dict())
-    sd["global_encoder.model.conv1.weight"] = torch.zeros(64, 3, 7, 7)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        convert.from_reference_state_dict(sd, model)
+def test_global_encoder_refused(tmp_path):
+    """A reference-layout checkpoint with a global encoder
+    (global_encoder.model.*, global_encoder.fc.*), which the port once
+    refused, converts through --torch_ckpt, loads strictly, and gives the
+    field that JAX's convert_reference_state_dict followed by the JAX
+    forward gives."""
+    conf = small_flagship()
+    conf.put("model.use_global_encoder", True)
+    conf.put("model.global_encoder", {"backbone": "resnet18",
+                                      "pretrained": False,
+                                      "latent_size": 32})
+    jm = jmake_model(conf.get_config("model"))
+    v = perturbed_variables(jm, scene(ns=2)[0][0], encoder_stats=True)
+    sd = _reference_sd(port_model(conf, v))
+    assert "global_encoder.fc.weight" in sd
+    assert "global_encoder.model.layer4.1.bn2.running_var" in sd
+    src = str(tmp_path / "reference_latest")
+    torch.save(sd, src)
+    path = tmp_path / "model.conf"
+    path.write_text(flagship_conf_text(d_hidden=64, backbone="resnet18",
+                                       num_layers=2).replace(
+        "model {", "model { use_global_encoder = True\n"
+        " global_encoder { backbone = resnet18\n pretrained = False\n"
+        " latent_size = 32 }", 1))
+    convert.main(["--torch_ckpt", src, "--conf", str(path), "--out",
+                  _out(tmp_path, "global"), "--device", "cpu"])
+    jv = convert_reference_state_dict({k: t.numpy() for k, t in sd.items()},
+                                      backbone="resnet18")
+    assert "global_encoder" in jv["params"]
+    _forward_matches(jm, jv, _load(tmp_path, conf, "global", seed=5))
 
 
 def test_missing_keys_taken_from_model(nerf_side):

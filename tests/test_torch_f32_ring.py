@@ -26,7 +26,9 @@ F32, BF16 = torch.float32, torch.bfloat16
 # (d_in, d_latent, hidden): NeRF, use_code_viewdirs, YOLO, narrow ones
 WIDTHS = {"nerf": (42, 512, 512), "viewdirs": (78, 512, 512),
           "yolo": (42, 1792, 512), "narrow": (42, 48, 128),
-          "narrow_z": (78, 64, 192), "h64": (42, 64, 64)}
+          "narrow_z": (78, 64, 192), "h64": (42, 64, 64),
+          # the conv encoder's 128-d latent at the flagship's hidden width
+          "conv": (42, 128, 512)}
 
 
 @pytest.mark.parametrize("dtype,want", [
@@ -121,7 +123,8 @@ SCHEDULES = (
      ("narrow", 1, 0, 0), ("narrow_z", 0, 0, 0), ("h64", 3, 0, 0)]
     + [({1: "narrow", 4: "nerf", 21: "yolo"}[d_out], n_pre, n_post, d_out)
        for n_pre in (3, None) for n_post in (0, 1, 2) for d_out in (1, 4, 21)]
-    + [("h64", 0, 2, 21), ("h64", None, 1, 21), ("narrow_z", 1, 2, 4)])
+    + [("h64", 0, 2, 21), ("h64", None, 1, 21), ("narrow_z", 1, 2, 4),
+       ("conv", 3, 0, 0), ("conv", 3, 2, 4)])
 
 
 @pytest.mark.parametrize("widths,n_pre,n_post,d_out", SCHEDULES)
@@ -197,7 +200,8 @@ def test_route_starts_at_its_first_kernel(ns, first, fuse_f32):
     assert PixelNeRF._first_kernel(mlp, ns, False) == "pre_combine"
     for dtype, want in ((F32, fuse_f32), (BF16, True)):
         stub = SimpleNamespace(use_fused_mlp="auto", d_in=42,
-                               compute_dtype=dtype)
+                               compute_dtype=dtype, use_encoder=True,
+                               global_encoder=None)
         assert PixelNeRF._can_fuse(stub, mlp, ns, first) is want
 
 

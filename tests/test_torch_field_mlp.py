@@ -218,7 +218,8 @@ def test_can_fuse_follows_jax():
     from pixelnerf_yolo_torch.models.pixelnerf import PixelNeRF
 
     stub = SimpleNamespace(use_fused_mlp="auto", d_in=D_IN,
-                           compute_dtype=torch.float32)
+                           compute_dtype=torch.float32, use_encoder=True,
+                           global_encoder=None)
     for cl, ns, want in [(CL, 1, True), (CL, 2, True), (NB, 1, True),
                          (NB, 2, False)]:
         _, _, tmlp = _mlps("float32", cl=cl)

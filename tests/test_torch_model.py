@@ -275,9 +275,17 @@ def test_unported_options_raise():
     conf = small_flagship()
     conf.put("renderer.early_terminate", 0.5)
     assert make_renderer(conf, device="cpu").early_terminate == 0.5
-    # the global encoder is not (ROADMAP.md Queue 1 item 22)
+    # the global encoder is ported too (ROADMAP.md Queue 1 item 22,
+    # tests/test_torch_model_options.py): its 128-d latent joins the MLP's
     conf.put("model.use_global_encoder", True)
-    with pytest.raises(NotImplementedError, match="global encoder"):
+    conf.put("model.global_encoder", {"backbone": "resnet18",
+                                      "pretrained": False})
+    model = make_model(conf.get_config("model"), device="cpu")
+    assert model.global_encoder.latent_size == 128
+    assert model.mlp_coarse.d_latent == 128 + 128
+    # a field type neither package has still raises
+    conf.put("model.mlp_coarse.type", "siren")
+    with pytest.raises(NotImplementedError, match="Unsupported MLP type"):
         make_model(conf.get_config("model"), device="cpu")
 
 

@@ -20,8 +20,10 @@ from pixelnerf_yolo_torch.ops import field_mlp as fm
 
 # (d_in, d_latent, hidden): NeRF, use_code_viewdirs and YOLO flagship
 # widths, then the tests' narrow ones
-WIDTHS = [(42, 512, 512), (78, 512, 512), (42, 1792, 512), (42, 48, 128),
-          (78, 64, 128), (6, 64, 64)]
+# the NeRF, viewdirs and YOLO flagships, the conv encoder's 128-d latent
+# (with and without the viewdirs' PE), narrow test widths
+WIDTHS = [(42, 512, 512), (78, 512, 512), (42, 1792, 512), (42, 128, 512),
+          (78, 128, 512), (42, 48, 128), (78, 64, 128), (6, 64, 64)]
 
 
 def _unpack_layer(flat, K, H):
@@ -357,6 +359,7 @@ def test_can_fuse_needs_a_lin_out_width(d_out, want):
                    generator=torch.Generator().manual_seed(0))
     for dtype, expect in ((torch.bfloat16, want), (torch.float32, want)):
         model = SimpleNamespace(use_fused_mlp="auto", d_in=42,
-                                compute_dtype=dtype)
+                                compute_dtype=dtype, use_encoder=True,
+                                global_encoder=None)
         for ns, mode in ((1, "full_pe"), (2, "full_pe"), (2, "pre_combine")):
             assert PixelNeRF._can_fuse(model, mlp, ns, mode) is expect

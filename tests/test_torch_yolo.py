@@ -352,7 +352,13 @@ def test_unported_yolo_options_raise():
     with torch.no_grad():
         tc = tm.encode(images, poses, focal, c=c)
     assert tc.latent_projected and tc.latent_flat.shape[-1] == 3 * 64
+    # the conv encoder is ported (ROADMAP.md Queue 1 item 21): a YOLO
+    # model builds on its 128-d latent; a backbone neither package has
+    # still raises
     conf = small_yolo()
     conf.put("model.encoder.backbone", "conv")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+    tm = make_model(conf.get_config("model"), device="cpu")
+    assert tm.encoder.latent_size == tm.mlp_coarse.d_latent == 128
+    conf.put("model.encoder.backbone", "resnet50")
+    with pytest.raises(NotImplementedError, match="resnet50"):
         make_model(conf.get_config("model"), device="cpu")

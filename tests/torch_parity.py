@@ -7,6 +7,7 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -63,8 +64,11 @@ def perturbed_variables(jmodel, images, seed=0, encoder_stats=False):
     v = jax.tree_util.tree_map_with_path(pert, v)
     for m in ("mlp_coarse", "mlp_fine"):
         if m in v["params"] and not jmodel.yolo:
-            b = v["params"][m]["lin_out"]["bias"]
-            v["params"][m]["lin_out"]["bias"] = b.at[3].set(8.0)
+            # the output layer: a ResnetFC's lin_out, an ImplicitNet's last
+            p = v["params"][m]
+            out = "lin_out" if "lin_out" in p else max(
+                p, key=lambda k: int(k.split("_")[1]))
+            p[out]["bias"] = p[out]["bias"].at[3].set(8.0)
     return jax.tree.map(np.asarray, v)
 
 
@@ -334,17 +338,16 @@ def nerf_train_conf(parse, use_fused_mlp, noise_std=0.0,
     return _put(conf, puts)
 
 
-def nerf_datasets(get_split_dataset, root):
-    """(train, val) SRN datasets at root, read at NERF_TRAIN_SIZE."""
-    size = (NERF_TRAIN_SIZE, NERF_TRAIN_SIZE)
-    return get_split_dataset("srn", root, image_size=size)[:2]
+def nerf_datasets(get_split_dataset, root, size=NERF_TRAIN_SIZE):
+    """(train, val) SRN datasets at root, read at size x size."""
+    return get_split_dataset("srn", root, image_size=(size, size))[:2]
 
 
 def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
-                     puts=None, **extra):
-    """A JAX PixelNeRFTrainer on the SRN dataset at root with perturbed
-    weights (every MLP weight and the encoder's BatchNorm moved off its
-    init); ns source views a step."""
+                     puts=None, size=NERF_TRAIN_SIZE, **extra):
+    """A JAX PixelNeRFTrainer on the SRN dataset at root (read at size)
+    with perturbed weights (every MLP weight and the encoder's BatchNorm
+    moved off its init); ns source views a step."""
     from pixelnerf_yolo_tpu.config.hocon import parse_string
     from pixelnerf_yolo_tpu.data import get_split_dataset
     from pixelnerf_yolo_tpu.models import make_model
@@ -354,14 +357,14 @@ def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
 
     conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std,
                            puts=puts)
-    dset, val_dset = nerf_datasets(get_split_dataset, root)
+    dset, val_dset = nerf_datasets(get_split_dataset, root, size)
     jm = make_model(conf.get_config("model"))
     jr = make_renderer(conf)
     args = train_args(tmp_path, "jax", nviews=str(ns), **extra)
     jtr = make_trainer(args, conf, dset, val_dset, jm, jr,
                        bind_parallel(jr, jm, gpus=[0]), [ns])
     v = perturbed_variables(
-        jm, np.zeros((ns, 3, NERF_TRAIN_SIZE, NERF_TRAIN_SIZE), np.float32),
+        jm, np.zeros((ns, 3, size, size), np.float32),
         encoder_stats=True)
     jtr.variables = jax.tree.map(jnp.asarray, v)
     jtr.init_opt_state(jtr.variables["params"])
@@ -369,7 +372,8 @@ def jax_nerf_trainer(root, tmp_path, use_fused_mlp, ns, noise_std=0.0,
 
 
 def port_nerf_trainer(root, tmp_path, variables, use_fused_mlp, ns,
-                      noise_std=0.0, puts=None, **extra):
+                      noise_std=0.0, puts=None, size=NERF_TRAIN_SIZE,
+                      **extra):
     """The port's PixelNeRFTrainer on the CPU with the JAX variables'
     weights."""
     from pixelnerf_yolo_torch.config.hocon import parse_string
@@ -381,7 +385,7 @@ def port_nerf_trainer(root, tmp_path, variables, use_fused_mlp, ns,
 
     conf = nerf_train_conf(parse_string, use_fused_mlp, noise_std,
                            puts=puts)
-    dset, val_dset = nerf_datasets(get_split_dataset, root)
+    dset, val_dset = nerf_datasets(get_split_dataset, root, size)
     model = make_model(conf.get_config("model"), device="cpu")
     model.load_state_dict(from_jax_variables(variables), strict=True)
     return make_trainer(train_args(tmp_path, "port", nviews=str(ns), **extra),
@@ -486,3 +490,43 @@ def ramp_relu_grad(monkeypatch):
     monkeypatch.setattr(port_resnetfc, "activation",
                         lambda beta: port_act(beta) if beta > 0
                         else PortReLU.apply)
+
+
+def renders_both(conf, variables, ns=2, n_rays=40, model=None):
+    """The JAX render and the port's (CPU) of scene(ns)'s rays with the
+    same weights (``model``, else ``port_model``) and draws: (JAX out,
+    port out) as numpy trees, each {"coarse", "fine"} of rgb and depth."""
+    from pixelnerf_yolo_tpu.models import make_model as jmake_model
+    from pixelnerf_yolo_tpu.render import make_renderer as jmake_renderer
+    from pixelnerf_yolo_tpu.utils.camera import gen_rays
+    from pixelnerf_yolo_torch.render import make_renderer
+
+    jm = jmake_model(conf.get_config("model"))
+    images, poses, focal = scene(ns=ns)
+    jc = jm.encode(variables, jnp.asarray(images), jnp.asarray(poses),
+                   jnp.asarray(focal))
+    rays = gen_rays(jnp.asarray(poses[0]), 8, 8, jnp.asarray(focal), 0.8,
+                    1.8)
+    rays = np.array(rays).reshape(1, -1, 8)[:, :n_rays]
+    jr = jmake_renderer(conf)
+    key = jax.random.PRNGKey(1)
+    ref = jax.tree.map(np.asarray, jr(jm, variables, jc, jnp.asarray(rays),
+                                      key))
+    tm = model if model is not None else port_model(conf, variables)
+    with torch.no_grad():
+        tc = tm.encode(images, poses, focal)
+        got = make_renderer(conf, device="cpu")(
+            tm, tc, rays, draws=jax_draws(jr, key, n_rays))
+    return ref, jax.tree.map(to_np, got)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module's tests: beside the other
+    test workers its default pool (a thread a core) oversubscribes the
+    cores, as tests/test_torch_convergence.py found.  A test module that
+    imports this fixture gets it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
