@@ -147,12 +147,30 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      most 1333) on a seeded 480x640 photo, on the card against the CPU in
      f32: FPN levels within 1e-4 x max|cpu|, the same detections paired
      one to one by class, boxes within 1e-2 px, masks equal on 99.9% of
-     pixels; each detect's seconds.
+     pixels; each detect's seconds;
+ 16. the multi-device path (pixelnerf_yolo_torch/parallel): (a) world size
+     1 over NCCL in this process: the bf16 YOLO flagship render (16,384
+     rays) and NeRF NS=1 render (65,536 rays) through bind_parallel,
+     bitwise the unbound renders, and one train_yolo step (f32 and bf16)
+     through make_train_mesh(1) against the unbound step, as close as a
+     second unbound step (bitwise where that one is); (b) two spawned
+     ranks sharing the card over gloo (NCCL refuses two ranks on one
+     device): the YOLO, NeRF NS=1 and viewdirs NS=2 bf16 renders of
+     16,384 rays sharded over them on the kernel route against (a)'s
+     world-1 renders at phase 3's limits, every kernel launched on each
+     rank, and train_yolo steps at (data 1, rays 2) and (data 1, rays 1,
+     model 2) against (a)'s world-1 step, f32 within phase 8's f32 limits,
+     bf16 printed beside phase 8's bf16 ones, with each rank's ms/step and
+     peak memory; every step of (a) and (b) launched pre_combine_pe and
+     post_combine of its dtype's kernel; then the bf16 TP step's witness,
+     the same step with the ranks' partial sums kept in f32
+     (f32_sum_block_forward), printed beside phase 8's bf16 limits, and
+     in (a) its control: that block form on one rank against the block.
 The launch counters (per wrapper and per wrapper and variant) are zeroed
-just before each render path (3, 4, 5, 6, 12, 13, 14) and each
-kernel-route training step (8, 9, 10, 14) or evaluation (10, 11) and read
-just after it; a
-kernel of a path that never launched fails it.
+just before each render path (3, 4, 5, 6, 12, 13, 14, 16) and each
+kernel-route training step (8, 9, 10, 14, 16) or evaluation (10, 11) and
+read just after it (in phase 16 (b) by each rank); a kernel of a path
+that never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -3216,6 +3234,513 @@ def pointrend_path(device) -> bool:
     return ok
 
 
+# -- phase 16: the multi-device path ------------------------------------------
+
+# (a) world size 1 over NCCL: the flagship renders of phases 3-4 through
+# bind_parallel against the unbound ones, bitwise, and one train_yolo step
+# through make_train_mesh(1) against the unbound step (beside a second
+# unbound step, the witness of what bitwise can mean there).  (b) two
+# ranks sharing cuda:0 (NCCL refuses two ranks on one device, so the group
+# runs on gloo, which parallel/collectives.py hands CUDA tensors through
+# the host): the renders at 16,384 rays on the kernel route against the
+# world-1 render at phase 3's limits, each rank's launches, and train_yolo
+# steps at mesh (data 1, rays 2) and (data 1, rays 1, model 2) against the
+# world-1 step: f32 within (1e-5, 1e-4) (the reduction order only), bf16
+# printed beside phase 8's limits; each step must launch pre_combine_pe and
+# post_combine of its dtype's kernel.  Then the bf16 TP step again with the
+# ranks' partial sums in f32 (f32_sum_block_forward): the witness of the
+# bf16 TP step's distance from world 1.
+PAR_RAYS = 16384
+PAR_NERF_RAYS = 65536  # (a)'s NeRF render, phase 3's
+PAR_RANKS = 2
+# timed steps a (b) configuration after its compared step: tensor
+# parallelism sends each block's (393,216 x 512) activations through gloo
+# and the host twice a step, ~5-10 s (PR 13), so it takes one
+PAR_TIMED = {1: 2, 2: 1}
+# (a) f32: two unbound steps differ by the latent gather's atomics
+# (5.1e-6, PR 13): the mesh step is held to PAR_WITNESS x that reading
+PAR_WITNESS = 2.0
+PAR_TIMEOUT = 240  # seconds the ranks of (b) may take
+# (b) configurations: (label, compute dtype, model_parallel)
+PAR_STEPS = [("rays2_f32", "float32", 1), ("model2_f32", "float32", 2),
+             ("rays2_bf16", "bfloat16", 1), ("model2_bf16", "bfloat16", 2)]
+
+
+def par_models(device):
+    """The (a) / (b) renders' models: the YOLO flagship and the NeRF
+    flagship and its viewdirs variant, bf16, weights from seed 0."""
+    yolo = build_models(device, out_scale=1.0, yolo=True, backbone="custom",
+                        dtypes=("bfloat16",))["bfloat16"]
+    nerf = build_models(device, dtypes=("bfloat16",))
+    vd = build_models(device, dtypes=("bfloat16",), use_code_viewdirs=True)
+    return yolo, nerf, vd
+
+
+def par_renders(device, yolo, nerf, vd, mesh, n_nerf):
+    """The three renders (YOLO NS=3, NeRF NS=1 at n_nerf rays, viewdirs
+    NS=2), unbound (mesh None) or through bind_parallel on mesh, each from
+    a generator seeded 3 on the kernel route: {label: (outputs, s)}."""
+    import torch
+
+    from pixelnerf_yolo_torch.parallel.render import bind_parallel
+
+    out = {}
+    model, renderer = yolo
+    model.use_fused_mlp = "auto"
+    images, poses, focal, c, target = yolo_scene(3, YOLO_SIZE)
+    from pixelnerf_yolo_torch.utils.camera import gen_rays_yolo
+
+    with torch.no_grad():
+        cond = model.encode(images, poses, focal, c=c)
+    rays = gen_rays_yolo(torch.from_numpy(target).to(device), YOLO_SIZE,
+                         YOLO_SIZE, focal[0], c[0], YOLO_NEAR,
+                         YOLO_FAR).reshape(1, -1, 8)[:, :PAR_RAYS]
+    jobs = [("yolo", model, renderer, cond, rays)]
+    for label, models, ns, n in (("nerf", nerf, 1, n_nerf),
+                                 ("viewdirs", vd, 2, PAR_RAYS)):
+        m, r = models["bfloat16"]
+        m.use_fused_mlp = "auto"
+        images, poses, focal, nrays = flagship_scene(ns, n, device)
+        with torch.no_grad():
+            ncond = m.encode(images, poses, focal)
+        jobs.append((label, m, r, ncond, nrays))
+    for label, m, r, cnd, rys in jobs:
+        g = torch.Generator(device=device).manual_seed(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mesh is None:
+            got = r(m, cnd, rys, generator=g)
+        else:
+            got = bind_parallel(r, m, mesh=mesh, want_weights=False)(
+                cnd, rys, generator=g)
+        torch.cuda.synchronize()
+        out[label] = (got, time.perf_counter() - t0)
+    return out
+
+
+def par_flat(out) -> dict:
+    """A render's outputs as {name: f32 CPU tensor}."""
+    if isinstance(out, dict):
+        return {f"{p}.{k}": v.float().cpu() for p, d in out.items()
+                for k, v in d.items()}
+    # YOLO: (B, A, 7) through bind_parallel, (1, B, A, 7) unbound
+    return {"out": out.float().cpu().reshape(-1, *out.shape[-2:])}
+
+
+def par_step(device, dtype_name, tmp, mesh=None):
+    """One train_yolo-point step (phase 8's conf, scene, weights, view
+    choice and draws) through make_trainer on mesh: (losses, {name: the
+    gradient in the single-device layout}, trainer, batch, u)."""
+    import torch
+
+    from pixelnerf_yolo_torch import parallel
+    from pixelnerf_yolo_torch.config.flagship import train_yolo_conf
+    from pixelnerf_yolo_torch.data import DataLoader
+    from pixelnerf_yolo_torch.models import make_model
+    from pixelnerf_yolo_torch.render import make_renderer
+    from pixelnerf_yolo_torch.train import make_trainer
+
+    conf = train_yolo_conf(dtype_name)
+    model = make_model(conf.get_config("model"), device=device, seed=0)
+    perturb_fc1(model, torch.Generator().manual_seed(2))
+    renderer = make_renderer(conf, device=device)
+    dset = train_dataset(conf)
+    batch = next(iter(DataLoader(dset, batch_size=1)))
+    trainer = make_trainer(train_args(tmp), conf, dset, dset, model,
+                           renderer, [TRAIN_NS], device=device, mesh=mesh)
+    R = conf.get_int("yolo.ray_batch_size")
+    u = torch.rand((R, renderer.n_coarse), device=device,
+                   generator=torch.Generator(device=device).manual_seed(5))
+    _, losses, _ = train_steps(trainer, batch, 1, u=u)
+    group = parallel.model_group(model)
+    grads = {n: None if p.grad is None else parallel.gather_tp(
+        p.grad.detach(), parallel._tp_dim(n, p.grad.ndim), group).cpu()
+        for n, p in model.named_parameters()}
+    return losses[0], grads, trainer, batch, u
+
+
+def par_kernels(launches: dict, dtype_name: str) -> bool:
+    """Whether a YOLO step launched pre_combine_pe and post_combine of its
+    dtype's kernel (the route did not fall back to the plain field)."""
+    import torch
+
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    return all(launched(launches, k, fm.variant(k, getattr(torch, dtype_name)))
+               > 0 for k in ("pre_combine_pe", "post_combine"))
+
+
+def f32_sum_block_forward(self, x, int8=False):
+    """ResnetBlockFC.forward with the tensor-parallel partial sums in f32:
+    fc_0's input gradient (f's all-reduce, backward) and fc_1's product
+    (g's, forward) are summed over the ranks in f32 and rounded to the
+    compute dtype once, as the single-device block rounds its whole
+    product once; every other rounding point is the block's.  (The
+    block's own bf16 form rounds each rank's partial to bf16 and sums in
+    bf16.)  For phase 16 (b)'s witness only."""
+    import torch.nn.functional as F
+
+    from pixelnerf_yolo_torch.nn.resnetfc import activation, dense
+    from pixelnerf_yolo_torch.parallel.collectives import (copy_to_group,
+                                                           reduce_from_group)
+
+    cdt, group = self.cdt, self.tp_group
+    act = activation(self.beta)
+    h = copy_to_group(act(x).float(), group)  # bf16 values, f32 gradient
+    net = (F.linear(h, self.fc_0.weight.to(cdt).float()).to(cdt)
+           + self.fc_0.bias.to(cdt))
+    partial = F.linear(act(net).float(), self.fc_1.weight.to(cdt).float())
+    dx = reduce_from_group(partial, group).to(cdt) + self.fc_1.bias.to(cdt)
+    x_s = x if self.shortcut is None else dense(x, self.shortcut, cdt, int8)
+    return x_s + dx
+
+
+def par_compare(got, ref):
+    """(max relative loss diff, worst gradient relative L2, its name,
+    whether the losses are finite and the same parameters have
+    gradients) of a step's (losses, gradients) against ref's."""
+    lk, gk = got
+    lp, gp = ref
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    worst, name, missing = grad_diff(gk, gp)
+    ok = all(math.isfinite(v) for v in lk.values()) and not missing
+    return loss_err, worst, name, ok
+
+
+def par_world1(device, tmp):
+    """Phase 16 (a) in this process: returns (ok, launches, references for
+    (b): renders and the f32 / bf16 world-1 steps)."""
+    import torch
+    import torch.distributed as dist
+
+    from pixelnerf_yolo_torch import parallel
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    ok = True
+    parallel.init_process_group(0, 1, "cuda", [0],
+                                os.path.join(tmp, "store1"))
+    try:
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)  # the NCCL communicator comes up here
+        print(f"phase 16 (a): world size {dist.get_world_size()} over "
+              f"{dist.get_backend()} (all_reduce of one {one.item()})",
+              flush=True)
+        yolo, nerf, vd = par_models(device)
+        unbound = par_renders(device, yolo, nerf, vd, None, PAR_NERF_RAYS)
+        fm.reset_launches()
+        bound = par_renders(device, yolo, nerf, vd, parallel.make_mesh(),
+                            PAR_NERF_RAYS)
+        launches = dict(fm.variant_launches)
+        for label in ("yolo", "nerf"):
+            a, b = par_flat(bound[label][0]), par_flat(unbound[label][0])
+            diff = max((a[k] - b[k]).abs().max().item() for k in b)
+            same = all(torch.equal(a[k], b[k]) for k in b)
+            ok &= same
+            print(f"  {label} bf16 bind_parallel vs unbound: max|diff| "
+                  f"{diff:.3e} {'bitwise ok' if same else 'FAILED'} "
+                  f"({bound[label][1]:.3f} s vs {unbound[label][1]:.3f} s)",
+                  flush=True)
+        refs = {"renders": {k: par_flat(v[0]) for k, v in par_renders(
+            device, yolo, nerf, vd, None, PAR_RAYS).items()}}
+        del yolo, nerf, vd, unbound, bound
+        torch.cuda.empty_cache()
+        mesh = parallel.make_train_mesh(batch_size=1)
+        for dtype_name in ("float32", "bfloat16"):
+            w1 = par_step(device, dtype_name, os.path.join(tmp, "u1"))
+            w2 = par_step(device, dtype_name, os.path.join(tmp, "u2"))
+            fm.reset_launches()
+            sh = par_step(device, dtype_name, os.path.join(tmp, "m1"), mesh)
+            launches[f"train_{dtype_name}"] = dict(fm.variant_launches)
+            wit = par_compare(w2[:2], w1[:2])
+            got = par_compare(sh[:2], w1[:2])
+            # the losses bitwise; the gradients bitwise where two unbound
+            # steps are, else within PAR_WITNESS x their difference; the
+            # kernels launched
+            kern = par_kernels(launches[f"train_{dtype_name}"], dtype_name)
+            same = (sh[0] == w1[0] and got[3]
+                    and got[1] <= PAR_WITNESS * wit[1] and kern)
+            ok &= same
+            print(f"  train_yolo {dtype_name} step on make_train_mesh(1) "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} vs "
+                  f"unbound: losses {sh[0]} vs {w1[0]}, max relative loss "
+                  f"diff {got[0]:.3e}, worst gradient relative L2 "
+                  f"{got[1]:.3e} ({got[2]}); a second unbound step: "
+                  f"{wit[0]:.3e}, {wit[1]:.3e} (held to {PAR_WITNESS}x); "
+                  f"launches {launches[f'train_{dtype_name}']} (kernels: "
+                  f"{kern}) {'ok' if same else 'FAILED'}", flush=True)
+            refs[dtype_name] = w1[:2]
+            if dtype_name == "bfloat16":
+                # the control of (b)'s witness: its f32-sum block form on
+                # one rank, against the block (printed, not held)
+                from pixelnerf_yolo_torch.nn.resnetfc import ResnetBlockFC
+
+                block_forward = ResnetBlockFC.forward
+                ResnetBlockFC.forward = f32_sum_block_forward
+                try:
+                    ctl = par_step(device, dtype_name,
+                                   os.path.join(tmp, "c1"))
+                finally:
+                    ResnetBlockFC.forward = block_forward
+                got = par_compare(ctl[:2], w1[:2])
+                print(f"  witness control: train_yolo bf16 step unbound "
+                      f"with f32_sum_block_forward vs the block: max "
+                      f"relative loss diff {got[0]:.3e}, worst gradient "
+                      f"relative L2 {got[1]:.3e} ({got[2]})", flush=True)
+                del ctl
+            del w1, w2, sh
+            torch.cuda.empty_cache()
+    finally:
+        parallel.destroy_process_group()
+    return ok, launches, refs
+
+
+def par_rank(rank, world, store, ref_path, out_path):
+    """Phase 16 (b) on one rank (spawned): the renders and the steps."""
+    import pickle
+
+    import torch
+
+    from pixelnerf_yolo_torch import parallel
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    dev = parallel.init_process_group(rank, world, "cuda", [0] * world,
+                                      store)
+    try:
+        device = torch.device(dev)
+        fm.load_library()
+        refs = torch.load(ref_path, weights_only=False)
+        yolo, nerf, vd = par_models(device)
+        assert next(yolo[0].parameters()).device == device
+        fm.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        got = par_renders(device, yolo, nerf, vd, parallel.make_mesh(),
+                          PAR_RAYS)
+        res["render_launches"] = dict(fm.variant_launches)
+        res["render_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["renders"] = {}
+        for label, (out, sec) in got.items():
+            a, b = par_flat(out), refs["renders"][label]
+            scale = max(1.0, max(t.abs().max().item() for t in b.values()))
+            diff = max((a[k] - b[k]).abs().max().item() for k in b)
+            finite = all(bool(torch.isfinite(t).all()) for t in a.values())
+            res["renders"][label] = (diff, scale, finite, sec,
+                                     all(torch.equal(a[k], b[k]) for k in b))
+        del yolo, nerf, vd, got
+        torch.cuda.empty_cache()
+        res["staging"] = par_staging(device)
+        res["steps"] = {}
+        for label, dtype_name, mp in PAR_STEPS:
+            mesh = parallel.make_train_mesh(batch_size=1, model_parallel=mp)
+            fm.reset_launches()
+            tmp = os.path.join(os.path.dirname(out_path), f"{label}{rank}")
+            losses, grads, trainer, batch, u = par_step(device, dtype_name,
+                                                        tmp, mesh)
+            step_launches = dict(fm.variant_launches)
+            cmp = par_compare((losses, grads), refs[dtype_name])
+            torch.cuda.reset_peak_memory_stats()
+            times, _, _ = train_steps(trainer, batch, PAR_TIMED[mp], u=u)
+            shard = tuple(dict(trainer.model.named_parameters())[
+                "mlp_coarse.blocks.0.fc_0.weight"].shape)
+            res["steps"][label] = {
+                "losses": losses, "loss_err": cmp[0], "grad_err": cmp[1],
+                "grad_worst": cmp[2], "complete": cmp[3],
+                "launches": step_launches,
+                "ms": statistics.median(times), "ms_min": min(times),
+                "ms_max": max(times),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "fc_0_shard": shard, "mp": mp}
+            del trainer, grads
+            torch.cuda.empty_cache()
+        # the bf16 TP step's witness: the same step, the ranks' partial
+        # sums in f32
+        from pixelnerf_yolo_torch.nn.resnetfc import ResnetBlockFC
+
+        block_forward = ResnetBlockFC.forward
+        ResnetBlockFC.forward = f32_sum_block_forward
+        try:
+            mesh = parallel.make_train_mesh(batch_size=1, model_parallel=2)
+            fm.reset_launches()
+            losses, grads, _, _, _ = par_step(
+                device, "bfloat16", os.path.join(os.path.dirname(out_path),
+                                                 f"witness{rank}"), mesh)
+        finally:
+            ResnetBlockFC.forward = block_forward
+        cmp = par_compare((losses, grads), refs["bfloat16"])
+        res["witness"] = {"losses": losses, "loss_err": cmp[0],
+                          "grad_err": cmp[1], "grad_worst": cmp[2],
+                          "complete": cmp[3],
+                          "launches": dict(fm.variant_launches)}
+    finally:
+        parallel.destroy_process_group()
+        with open(out_path, "wb") as f:
+            pickle.dump(res, f)
+
+
+def par_staging(device, reps=2) -> dict:
+    """ms (median of reps, host clock) of one all-reduce over the ranks'
+    gloo group, staged through the host: of the train_yolo model's f32
+    gradients (28,467,637 values) and of one tensor-parallel block's f32
+    activations at the train_yolo point (393,216 x 512)."""
+    import torch
+    import torch.distributed as dist
+
+    from pixelnerf_yolo_torch.parallel.collectives import all_reduce_
+
+    out = {}
+    for label, n in (("the gradients, 108.6 MiB", 28_467_637),
+                     ("a TP block's activations, 768 MiB", 393_216 * 512)):
+        t = torch.ones(n, device=device)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_(t, dist.group.WORLD)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[label] = statistics.median(times)
+        del t
+    return out
+
+
+def spawn_ranks(fn, world, args, timeout):
+    """fn(rank, world, *args) in world spawned processes; returns their
+    exit codes (a process still running after timeout seconds is killed
+    and reads None)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def parallel_path(device):
+    """Phase 16.  Returns (ok, launches by path)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    paths = {}
+    try:
+        ok, launches, refs = par_world1(device, tmp)
+        paths["parallel_world1_renders"] = {
+            k: v for k, v in launches.items() if "/" in k}
+        for dtype_name in ("float32", "bfloat16"):
+            paths[f"parallel_world1_train_{dtype_name}"] = launches[
+                f"train_{dtype_name}"]
+        ref_path = os.path.join(tmp, "refs.pt")
+        torch.save(refs, ref_path)
+        del refs
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(PAR_RANKS)]
+        codes = spawn_ranks(par_rank_entry, PAR_RANKS,
+                            (os.path.join(tmp, "store"), ref_path, tmp),
+                            PAR_TIMEOUT)
+        print(f"phase 16 (b): {PAR_RANKS} ranks sharing cuda:0 over gloo "
+              f"(CUDA tensors staged through the host), exit codes {codes}, "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        ok &= all(c == 0 for c in codes)
+        results = []
+        for path in outs:
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+        every = ("full_pe", "pre_combine_pe", "post_combine", "pre_combine")
+        for r, res in enumerate(results):
+            if "witness" not in res:
+                print(f"FAILED: rank {r} did not finish")
+                ok = False
+                continue
+            rl = res["render_launches"]
+            paths[f"parallel_rank{r}_renders"] = rl
+            launched_all = all(launched(rl, k) > 0 for k in every)
+            ok &= launched_all
+            print(f"  rank {r} render launches {rl} (every kernel > 0: "
+                  f"{'ok' if launched_all else 'FAILED'}); peak memory "
+                  f"{res['render_peak_gib']:.2f} GiB", flush=True)
+            for label, (diff, scale, finite, sec, same) in \
+                    res["renders"].items():
+                tol = RENDER_TOL["bfloat16"] * scale
+                good = finite and diff <= tol
+                ok &= good
+                print(f"  rank {r} {label} bf16 {PAR_RAYS} rays sharded "
+                      f"over {PAR_RANKS} vs world 1: max|diff| {diff:.3e} "
+                      f"(tol {tol:.3e}; bitwise {same}) in {sec:.3f} s "
+                      f"{'ok' if good else 'FAILED'}", flush=True)
+            print(f"  rank {r} gloo through the host: " + "; ".join(
+                f"all_reduce of {k} {v:.1f} ms" for k, v in
+                res["staging"].items()), flush=True)
+            for label, st in res["steps"].items():
+                paths[f"parallel_rank{r}_{label}"] = st["launches"]
+                dtype_name = "float32" if label.endswith("f32") else \
+                    "bfloat16"
+                loss_tol, grad_tol = TRAIN_TOL[dtype_name]
+                within = st["loss_err"] <= loss_tol and \
+                    st["grad_err"] <= grad_tol
+                # f32 is held; bf16 is printed beside phase 8's limits;
+                # the kernels launched in both
+                good = (st["complete"] and par_kernels(st["launches"],
+                                                       dtype_name)
+                        and (within or dtype_name == "bfloat16"))
+                ok &= good
+                print(f"  rank {r} {label} mesh {st['mesh']} (fc_0 shard "
+                      f"{st['fc_0_shard']}): losses {st['losses']}; vs world "
+                      f"1 max relative loss diff {st['loss_err']:.3e}, worst "
+                      f"gradient relative L2 {st['grad_err']:.3e} "
+                      f"({st['grad_worst']}); limits ({loss_tol}, "
+                      f"{grad_tol}): {'within' if within else 'OUTSIDE'}; "
+                      f"{st['ms']:.3f} ms/step median of "
+                      f"{PAR_TIMED[st['mp']]} (min "
+                      f"{st['ms_min']:.3f}, max {st['ms_max']:.3f}); peak "
+                      f"memory {st['peak_gib']:.2f} GiB; launches "
+                      f"{st['launches']} {'ok' if good else 'FAILED'}",
+                      flush=True)
+            wt = res["witness"]
+            paths[f"parallel_rank{r}_model2_bf16_f32_sums"] = wt["launches"]
+            loss_tol, grad_tol = TRAIN_TOL["bfloat16"]
+            within = wt["loss_err"] <= loss_tol and wt["grad_err"] <= grad_tol
+            good = wt["complete"] and par_kernels(wt["launches"], "bfloat16")
+            ok &= good
+            print(f"  rank {r} witness: model2_bf16 with the ranks' partial "
+                  f"sums in f32: losses {wt['losses']}; vs world 1 max "
+                  f"relative loss diff {wt['loss_err']:.3e}, worst gradient "
+                  f"relative L2 {wt['grad_err']:.3e} ({wt['grad_worst']}); "
+                  f"limits ({loss_tol}, {grad_tol}): "
+                  f"{'within' if within else 'OUTSIDE'}; launches "
+                  f"{wt['launches']} {'ok' if good else 'FAILED'}",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok, paths
+
+
+def par_rank_entry(rank, world, store, ref_path, tmp):
+    par_rank(rank, world, store, ref_path,
+             os.path.join(tmp, f"rank{rank}.pkl"))
+
+
 def main() -> int:
     import torch
 
@@ -3242,7 +3767,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-15; prints the kernels line; True when every check held."""
+    """Phases 2-16; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -3352,13 +3877,16 @@ def run(device) -> bool:
     ook, option_launches = options_path(device)
     ok &= ook
     ok &= pointrend_path(device)
+    pok, parallel_launches = parallel_path(device)
+    ok &= pok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
              "train_step": train_launches["bfloat16"],
              "train_step_f32": train_launches["float32"],
              **nerf_train_launches, **ms_launches, **eval_launches,
-             **serve_launches, **interchange_launches, **option_launches}
+             **serve_launches, **interchange_launches, **option_launches,
+             **parallel_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

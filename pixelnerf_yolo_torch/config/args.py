@@ -3,8 +3,11 @@
 Counterpart of pixelnerf_yolo_tpu/config/args.py (its JAX platform and
 compile-cache set-up left out): the same flags, the same expconf.conf
 expname -> conf/datadir indirection, the same directory creation.
-``--gpu_id`` is parsed into a list of device ordinals as there; the port
-trains on one device (multi-GPU is ROADMAP.md Queue 1 item 20).
+``--gpu_id`` is parsed into a list of device ordinals as there: a list of
+N ids runs the entry point on N ranks, one process per id on
+cuda:<id> (``parallel.launch``), sharding training over a
+``('data', 'rays'[, 'model'])`` mesh and each evaluation render's rays
+over the ranks; one id runs on one device.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ def parse_args(
         "--gpu_id",
         type=str,
         default="0",
-        help="device(s) to use, space delimited",
+        help="device(s) to use, space delimited: N ids run N ranks, one "
+        "process per device (rank r on cuda:<id r>, or on the CPU with "
+        "--device cpu)",
     )
     parser.add_argument(
         "--name", "-n", type=str, default=default_expname, help="experiment name"

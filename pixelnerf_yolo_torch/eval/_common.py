@@ -1,12 +1,19 @@
-"""What the evaluation CLIs share: the --device flag, the one-device
-check, the trained model and the chunked NeRF render."""
+"""What the evaluation CLIs share: the --device flag, the trained model
+and the chunked, ray-sharded NeRF render.
+
+Each CLI's ``main`` starts one rank a ``--gpu_id`` id (``parallel.launch``)
+and runs its ``run(args, conf)`` on every rank: the renders shard their
+rays over the ranks (``render_rays``), every rank gets the whole result, and
+only rank 0 prints and writes files."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models import make_model
+from ..parallel.render import RenderParallel
 from ..train import checkpoints
 
 
@@ -14,13 +21,6 @@ def add_device_arg(parser):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to evaluate on (cuda or cpu)")
     return parser
-
-
-def check_one_device(args) -> None:
-    if len(args.gpu_id) > 1:
-        raise NotImplementedError(
-            "multi-GPU evaluation is not ported yet (ROADMAP.md Queue 1 "
-            "item 20)")
 
 
 def load_model(args, conf, device):
@@ -36,21 +36,43 @@ def load_model(args, conf, device):
 def render_rays(renderer, model, cond, all_rays: np.ndarray,
                 ray_batch_size: int, generator=None):
     """Render (N, 8) rays of one scene in chunks of ray_batch_size, one
-    render call and one set of draws each.
+    render call and one set of draws each, its rays sharded over the ranks
+    when there are several (``parallel.default_mesh``).
 
     :return (rgb (N, 3), depth (N,)) numpy, of the fine pass when there is
       one, else of the coarse
     """
     branch = "fine" if renderer.using_fine else "coarse"
+    render = RenderParallel(renderer, model, mesh=parallel.default_mesh())
     rgb, depth = [], []
     for start in range(0, all_rays.shape[0], ray_batch_size):
         rays = torch.from_numpy(np.ascontiguousarray(
             all_rays[start:start + ray_batch_size], dtype=np.float32))
-        out = renderer(model, cond, rays[None], generator=generator)[branch]
+        out = render(cond, rays[None], generator=generator)[branch]
         rgb.append(out["rgb"][0])
         depth.append(out["depth"][0])
     return (torch.cat(rgb).float().cpu().numpy(),
             torch.cat(depth).float().cpu().numpy())
+
+
+def read_floats(prompts) -> list | None:
+    """One float a prompt, read from stdin by rank 0 and handed to every
+    rank; None (on every rank) at the end of input or on a non-number."""
+    values = None
+    if parallel.is_main():
+        try:
+            values = [float(input(p)) for p in prompts]
+        except EOFError:
+            pass
+        except ValueError:
+            print("non-numeric input, exiting")
+    if parallel.world_size() > 1:
+        import torch.distributed as dist
+
+        box = [values]
+        dist.broadcast_object_list(box, src=0)
+        values = box[0]
+    return values
 
 
 def write_video(path: str, frames_u8: np.ndarray, fps: int) -> str:

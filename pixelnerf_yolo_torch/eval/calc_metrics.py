@@ -37,8 +37,9 @@ def make_parser():
                         help="Dataset format, nerf | srn | dvr")
     parser.add_argument("--list_name", type=str, default="softras_test",
                         help="Filter list prefix for DVR")
-    parser.add_argument("--gpu_id", type=int, default=0,
-                        help="Only single device supported for this script.")
+    parser.add_argument("--gpu_id", type=str, default="0",
+                        help="device(s), space delimited; the metrics are "
+                        "computed on the host, so a list changes nothing")
     parser.add_argument("--overwrite", action="store_true",
                         help="overwrite existing metrics.txt")
     parser.add_argument("--exclude_dtu_bad", action="store_true",

@@ -18,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config.args import parse_args
 from ..data import DataLoader, get_split_dataset
 from ..ops.resize import resize_area, resize_bilinear
@@ -26,7 +27,6 @@ from ..utils import camera
 from ..utils.metrics import psnr as psnr_fn, ssim as ssim_fn
 from ._common import (
     add_device_arg,
-    check_one_device,
     load_model,
     render_rays,
 )
@@ -236,7 +236,11 @@ def _write_depth(obj_out_dir, view: int, depth):
 def main(argv=None):
     args, conf = parse_args(extra_args, default_conf="conf/default_mv.conf",
                             default_expname="shapenet", argv=argv)
-    check_one_device(args)
+    return parallel.launch(run, args, conf)
+
+
+def run(args, conf):
+    """The evaluation on one rank (only rank 0 writes the output)."""
     dset = get_split_dataset(args.dataset_format, args.datadir,
                              want_split=args.split, training=False)
 
@@ -244,8 +248,8 @@ def main(argv=None):
     has_output = len(output_dir) > 0
     finished, prev, finish_file = set(), [], None
     if has_output:
+        # every rank reads what an earlier run finished; rank 0 writes
         finish_path = os.path.join(output_dir, "finish.txt")
-        os.makedirs(output_dir, exist_ok=True)
         if os.path.exists(finish_path):
             with open(finish_path, "r") as f:
                 prev = [x.strip().split() for x in f.readlines()]
@@ -255,7 +259,9 @@ def main(argv=None):
             if cnt > 0:
                 print("resume psnr", sum(float(x[1]) for x in prev) / cnt,
                       "ssim", sum(float(x[2]) for x in prev) / cnt)
-        finish_file = open(finish_path, "a", buffering=1)
+        if parallel.is_main():
+            os.makedirs(output_dir, exist_ok=True)
+            finish_file = open(finish_path, "a", buffering=1)
         print("Writing images to", output_dir)
 
     model = load_model(args, conf, args.device)
@@ -284,7 +290,7 @@ def main(argv=None):
         compare_gt=not args.no_compare_gt,
         ray_batch_size=args.ray_batch_size, seed=args.seed, skip=finished,
         on_object=(_write_object(output_dir, args, finish_file)
-                   if has_output else None))
+                   if finish_file is not None else None))
     if finish_file is not None:
         finish_file.close()
     objects = [(x[0], float(x[1]), float(x[2])) for x in prev] + res[

@@ -13,11 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config.args import parse_args
 from ..data import DataLoader, get_split_dataset
 from ..utils import camera
 from ..utils.metrics import psnr as psnr_fn, ssim as ssim_fn
-from ._common import add_device_arg, check_one_device, load_model
+from ..parallel.render import RenderParallel
+from ._common import add_device_arg, load_model
 from .eval import eval_renderer
 
 
@@ -43,6 +45,8 @@ def evaluate(model, renderer, dset, source, batch_size: int = 4,
     """
     gen = torch.Generator(device=model.device).manual_seed(seed)
     branch = "fine" if renderer.using_fine else "coarse"
+    # rays sharded over the ranks when there are several
+    render = RenderParallel(renderer, model, mesh=parallel.default_mesh())
     z_near, z_far = dset.z_near, dset.z_far
     rng = np.random.default_rng(seed)
     source = np.asarray(source, dtype=np.int64)
@@ -77,7 +81,7 @@ def evaluate(model, renderer, dset, source, batch_size: int = 4,
             ).reshape(-1, 8).numpy()
             for b in range(SB)
         ])  # (SB, H*W, 8)
-        out = renderer(model, cond, rays, generator=gen)[branch]
+        out = render(cond, rays, generator=gen)[branch]
         rgb = np.clip(out["rgb"].float().cpu().numpy().reshape(SB, H, W, 3),
                       0, 1)
         gt = (images[np.arange(SB), tgt] * 0.5 + 0.5).transpose(0, 2, 3, 1)
@@ -92,7 +96,11 @@ def evaluate(model, renderer, dset, source, batch_size: int = 4,
 
 def main(argv=None):
     args, conf = parse_args(extra_args, argv=argv)
-    check_one_device(args)
+    return parallel.launch(run, args, conf)
+
+
+def run(args, conf):
+    """The approximate evaluation on one rank."""
     model = load_model(args, conf, args.device)
     dset = get_split_dataset(args.dataset_format, args.datadir,
                              want_split=args.split, training=False)

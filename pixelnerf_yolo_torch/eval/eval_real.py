@@ -15,13 +15,13 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config.args import parse_args
 from ..render.nerf import NeRFRenderer
 from ..utils import camera
 from ..utils.image import image_to_tensor_balanced
 from ._common import (
     add_device_arg,
-    check_one_device,
     load_model,
     render_rays,
     write_video,
@@ -87,7 +87,11 @@ def render_orbit(model, renderer, image, focal: float, radius: float,
 def main(argv=None):
     args, conf = parse_args(extra_args, default_expname="srn_car",
                             default_data_format="srn", argv=argv)
-    check_one_device(args)
+    return parallel.launch(run, args, conf)
+
+
+def run(args, conf):
+    """The orbit on one rank (only rank 0 writes the frames)."""
     model = load_model(args, conf, args.device)
     renderer = NeRFRenderer.from_conf(conf.get_config("renderer"),
                                       eval_batch_size=args.ray_batch_size,
@@ -104,6 +108,8 @@ def main(argv=None):
         model, renderer, image, args.focal, args.radius, args.elevation,
         args.num_views, out_sizes[0], out_sizes[-1], args.z_near, args.z_far,
         args.ray_batch_size, seed=args.seed)
+    if not parallel.is_main():
+        return frames
 
     os.makedirs(args.output, exist_ok=True)
     base = os.path.splitext(os.path.basename(args.input))[0]

@@ -6,11 +6,13 @@ split, or a per-scale threshold calibration.
         [--host_nms] [--device cuda]
 
 Counterpart of the repo's eval/eval_yolo.py: the same flags and the same
-printed table, on one device (the card unless ``--device cpu``).
+printed table, on the card unless ``--device cpu``; a ``--gpu_id`` list
+shards the renders over one rank an id.
 """
 
 from __future__ import annotations
 
+from .. import parallel
 from ..config.args import parse_args
 from ..data import DataLoader, get_split_dataset
 from ..detect.boxes import calculate_precision_recall_f1
@@ -18,7 +20,7 @@ from ..models import make_model
 from ..render import make_renderer
 from ..train import make_trainer
 from ..utils.misc import count_parameters
-from ._common import add_device_arg, check_one_device
+from ._common import add_device_arg
 
 
 def extra_args(parser):
@@ -49,8 +51,8 @@ def extra_args(parser):
 def build_trainer(args, conf, splits=None):
     """The YOLO trainer over the conf's datasets (or the given (train, val,
     test) splits), with the trained weights
-    (checkpoints/<name>/pixel_nerf_latest); returns (trainer, test set)."""
-    check_one_device(args)
+    (checkpoints/<name>/pixel_nerf_latest), its renders sharded over the
+    ranks when there are several; returns (trainer, test set)."""
     if splits is None:
         splits = get_split_dataset(args.dataset_format, args.datadir,
                                    conf=conf)
@@ -64,7 +66,8 @@ def build_trainer(args, conf, splits=None):
     nviews = list(map(int, args.nviews.split()))
     args.resume = True  # evaluation always loads the trained weights
     trainer = make_trainer(args, conf, dset, val_dset, model, renderer,
-                           nviews, device=args.device)
+                           nviews, device=args.device,
+                           mesh=parallel.default_mesh())
     print("Number of model parameters:",
           count_parameters(trainer.model))
     return trainer, test_dset
@@ -93,6 +96,11 @@ def evaluate(trainer, test_dset, calibrate=None):
 def main(argv=None):
     args, conf = parse_args(extra_args, training=True,
                             default_ray_batch_size=128, argv=argv)
+    return parallel.launch(run, args, conf)
+
+
+def run(args, conf):
+    """The evaluation on one rank."""
     trainer, test_dset = build_trainer(args, conf)
 
     print("\n------------ Eval ------------")

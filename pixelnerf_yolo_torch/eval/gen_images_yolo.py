@@ -15,9 +15,10 @@ import os
 
 import numpy as np
 
+from .. import parallel
 from ..config.args import parse_args
 from ..data import DataLoader
-from ._common import add_device_arg
+from ._common import add_device_arg, read_floats
 from .eval_yolo import build_trainer
 
 
@@ -53,6 +54,12 @@ def render_panel(trainer, data, source, dest: int, nmst: float,
 def main(argv=None):
     args, conf = parse_args(extra_args, training=True,
                             default_ray_batch_size=128, argv=argv)
+    return parallel.launch(run, args, conf)
+
+
+def run(args, conf):
+    """The panel loop on one rank: rank 0 reads the thresholds and writes
+    the panels."""
     trainer, test_dset = build_trainer(args, conf)
 
     print("\n------------ Generating images ------------")
@@ -61,16 +68,12 @@ def main(argv=None):
     dest = args.dest
     written = []
     while True:
-        try:
-            nmst = float(input("Enter nmst: "))
-            nmsiou = float(input("Enter nmsiou: "))
-        except EOFError:
+        values = read_floats(("Enter nmst: ", "Enter nmsiou: "))
+        if values is None:
             break
-        except ValueError:
-            print("non-numeric input, exiting")
-            break
+        nmst, nmsiou = values
         vis = render_panel(trainer, data, source, dest, nmst, nmsiou)
-        if vis is None:
+        if vis is None or not parallel.is_main():
             continue
         import imageio
 

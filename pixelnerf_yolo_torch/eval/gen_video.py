@@ -17,13 +17,13 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config.args import parse_args
 from ..data import get_split_dataset
 from ..render.nerf import NeRFRenderer
 from ..utils import camera
 from ._common import (
     add_device_arg,
-    check_one_device,
     load_model,
     render_rays,
     write_video,
@@ -96,7 +96,11 @@ def render_video(model, renderer, data, source, render_poses, z_near: float,
 
 def main(argv=None):
     args, conf = parse_args(extra_args, argv=argv)
-    check_one_device(args)
+    return parallel.launch(run, args, conf)
+
+
+def run(args, conf):
+    """The video on one rank (only rank 0 writes it)."""
     dset = get_split_dataset(args.dataset_format, args.datadir,
                              want_split=args.split, training=False)
     data = dset[args.subset]
@@ -122,6 +126,8 @@ def main(argv=None):
     frames = render_video(model, renderer, data, source, render_poses,
                           z_near, z_far, scale=args.scale,
                           ray_batch_size=args.ray_batch_size, seed=args.seed)
+    if not parallel.is_main():
+        return frames
 
     import imageio
 

@@ -51,12 +51,14 @@ class RGBWithBackground:
         return torch.mean(weighted) + torch.mean(torch.log(lambda_bg))
 
 
-def weighted_rgb_loss(crit, outputs, targets, w):
+def weighted_rgb_loss(crit, outputs, targets, w, w_total=None):
     """``crit`` with per-ray weights: rays with w = 0 drop out of the mean
     exactly.
 
     :param outputs/targets (..., R, 3); w (..., R) in {0, 1}, or None
       (``crit`` as it is)
+    :param w_total the denominator's weight sum, when the rays are a
+      rank's part of a sharded batch (the global sum), else sum(w)
     Only the elementwise criteria (mse_loss, l1_loss) can drop a ray from
     their mean; any other criterion raises TypeError.
     """
@@ -72,7 +74,8 @@ def weighted_rgb_loss(crit, outputs, targets, w):
             f"(mse_loss/l1_loss); got {type(crit).__name__}. "
             "loss.rgb.use_uncertainty cannot weight rays; disable it.")
     per_ray = torch.mean(elem, dim=-1)
-    return torch.sum(per_ray * w) / torch.clamp(torch.sum(w), min=1.0)
+    total = torch.sum(w) if w_total is None else w_total
+    return torch.sum(per_ray * w) / torch.clamp(total, min=1.0)
 
 
 def get_rgb_loss(conf, coarse=True):

@@ -10,7 +10,9 @@ Counterpart of pixelnerf_yolo_tpu/losses/yolo.py:
     [target xy, log(1e-6 + target wh / anchor)];
   * class: cross-entropy over the 2 classes (log_softmax).
 Each term is a mean over its mask, 0 when the mask is empty; cells with
-target prob -1 (ignored) are in no mask.
+target prob -1 (ignored) are in no mask.  A rank holding part of a sharded
+chunk passes the chunk's counts, so that its terms are its part of each
+mean.
 """
 
 from __future__ import annotations
@@ -40,9 +42,12 @@ def iou_xywh(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     return inter / (area1 + area2 - inter + 1e-6)
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of values where mask; 0 when the mask is empty."""
-    count = mask.sum()
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 count=None) -> torch.Tensor:
+    """Mean of values where mask; 0 when the mask is empty.  count: the
+    mask's count over every rank's part (a sharded chunk), else its own."""
+    if count is None:
+        count = mask.sum()
     total = torch.where(mask, values, torch.zeros_like(values)).sum()
     return torch.where(count > 0, total / torch.clamp(count, min=1),
                        torch.zeros_like(total))
@@ -65,17 +70,21 @@ class YoloLoss:
         self.class_loss = class_loss
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
-                 anchors: torch.Tensor):
+                 anchors: torch.Tensor, counts=None):
         """:param pred (..., A, 7) renderer output [prob, x, y, w, h, c0, c1]
         :param target (..., A, 6) grid targets [prob, x, y, w, h, cls]
         :param anchors (A, 2)
+        :param counts optional (object cells, no-object cells) of the whole
+          chunk when pred and target are a rank's part of it: each mean
+          divides this part's masked sum by the chunk's count
         :return (total, box, object, no_object, class) scalars
         """
         obj = target[..., 0] == 1
         no_obj = target[..., 0] == 0
+        n_obj, n_no_obj = counts if counts is not None else (None, None)
 
         no_object_loss = _masked_mean(
-            _bce(pred[..., 0], target[..., 0] * 0.0), no_obj)
+            _bce(pred[..., 0], target[..., 0] * 0.0), no_obj, n_no_obj)
 
         anchors_b = anchors.reshape(
             (1,) * (pred.ndim - 2) + (self.num_anchors_per_scale, 2))
@@ -83,7 +92,7 @@ class YoloLoss:
                                torch.exp(pred[..., 3:5]) * anchors_b], dim=-1)
         ious = iou_xywh(box_preds, target[..., 1:5]).detach()
         object_loss = _masked_mean(
-            (pred[..., 0] - ious * target[..., 0]) ** 2, obj)
+            (pred[..., 0] - ious * target[..., 0]) ** 2, obj, n_obj)
 
         pred_box = torch.cat([torch.sigmoid(pred[..., 1:3]), pred[..., 3:5]],
                              dim=-1)
@@ -91,12 +100,12 @@ class YoloLoss:
             [target[..., 1:3], torch.log(1e-6 + target[..., 3:5] / anchors_b)],
             dim=-1)
         box_loss = _masked_mean(((pred_box - target_box) ** 2).mean(dim=-1),
-                                obj)
+                                obj, n_obj)
 
         log_probs = torch.log_softmax(pred[..., 5:], dim=-1)
         cls_idx = target[..., 5].to(torch.int64)
         ce = -torch.gather(log_probs, -1, cls_idx[..., None])[..., 0]
-        class_loss = _masked_mean(ce, obj)
+        class_loss = _masked_mean(ce, obj, n_obj)
 
         total = (box_loss * self.box_loss
                  + object_loss * self.object_loss

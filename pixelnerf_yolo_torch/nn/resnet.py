@@ -28,6 +28,13 @@ f32 rounding, but the latter's gradient cancels, and on the CPU's sums
 over an NCHW map it moved the encoder's parameter gradients up to 5e-4
 (relative L2) off an f64 reference where flax and ``var_mean`` stay
 within 3e-6 (tests/test_torch_train_encoder.py).
+
+Inside ``parallel.collectives.synced_batch_norm(group)`` a train-mode
+BatchNorm takes the statistics of the whole batch over the group's ranks
+(SyncBatchNorm): each rank's (count, mean, M2) from ``torch.var_mean``,
+gathered and combined with Chan's parallel formula, the gradient flowing
+through the gathered statistics to every rank; the running statistics
+take the combined ones.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import batch_norm_group, gather_stats
 
 STAGE_SIZES = {"resnet18": [2, 2, 2, 2], "resnet34": [3, 4, 6, 3]}
 # channel sizes of [stem, layer1..layer4] outputs
@@ -68,7 +77,11 @@ def batch_norm(x: torch.Tensor, m: nn.BatchNorm2d, cdt: torch.dtype,
     """BatchNorm of an NCHW map (flax semantics, see the module doc)."""
     x = x.float()
     if train:
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        group = batch_norm_group()
+        if group is None:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        else:
+            var, mean = synced_var_mean(x, group)
         with torch.no_grad():
             m.running_mean.copy_(momentum * m.running_mean
                                  + (1 - momentum) * mean)
@@ -79,6 +92,21 @@ def batch_norm(x: torch.Tensor, m: nn.BatchNorm2d, cdt: torch.dtype,
     mul = torch.rsqrt(var + m.eps) * m.weight
     y = (x - mean[:, None, None]) * mul[:, None, None]
     return (y + m.bias[:, None, None]).to(cdt)
+
+
+def synced_var_mean(x: torch.Tensor, group):
+    """(biased variance, mean) per channel of an NCHW map over the batch of
+    every rank of group: Chan's combination of each rank's (count, mean,
+    M2), not E[x^2] - E[x]^2."""
+    n = x.numel() // x.shape[1]
+    var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+    count = torch.full_like(mean, float(n))
+    stats = gather_stats(torch.stack([count, mean, var * n]), group)
+    counts, means, m2s = stats.unbind(1)
+    total = counts.sum(0)
+    mean_all = (counts * means).sum(0) / total
+    m2 = (m2s + counts * (means - mean_all) ** 2).sum(0)
+    return m2 / total, mean_all
 
 
 def group_norm(x: torch.Tensor, m: nn.GroupNorm,

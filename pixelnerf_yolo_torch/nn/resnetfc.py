@@ -21,6 +21,15 @@ latent table) and adds each block's lin_z bias after the gather;
 int8 product (nn/quant.py), lin_in and lin_out in float.  SPADE
 (``use_spade``) scales the residual stream per block by ``scale_z.N`` of
 the latent before adding ``lin_z.N``'s injection.
+
+Tensor parallelism (``parallel.shard_model``): a block bound to a 'model'
+group of TP ranks holds H/TP of fc_0's output columns (and of its bias)
+and H/TP of fc_1's input rows; its input enters through Megatron's f
+(identity forward, all-reduce backward) and fc_1's partial product leaves
+through g (all-reduce forward) before fc_1's bias and the residual add.
+lin_in, lin_z, lin_out and the residual stream stay whole.  Unbound
+(``tp_group`` None) f and g are the identity: one code path, the
+single-device numbers.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to_group, reduce_from_group
 from ..utils.indexing import combine_interleaved
 from .quant import dot_w8a8
 
@@ -50,6 +60,15 @@ def dense(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype,
     if m.bias is not None:
         y = y + m.bias.to(cdt)
     return y
+
+
+def dense_nobias(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype,
+                 int8: bool = False) -> torch.Tensor:
+    """``dense`` without the bias: a row-parallel shard's partial product
+    (int8: in f32 until the bias, as ``dense`` keeps it)."""
+    if int8:
+        return dot_w8a8(x.to(cdt), m.weight.t())
+    return F.linear(x.to(cdt), m.weight.to(cdt))
 
 
 class _BlockOut(threading.local):
@@ -131,7 +150,10 @@ def _linear(d_in: int, d_out: int, generator, bias: bool = True,
 
 class ResnetBlockFC(nn.Module):
     """act -> fc_0 -> act -> fc_1, plus (projected) shortcut; fc_1 is
-    zero-initialized so a fresh block is the identity."""
+    zero-initialized so a fresh block is the identity.  ``tp_group``: the
+    'model' group its fc_0 / fc_1 shards are split over (module doc)."""
+
+    tp_group = None
 
     def __init__(self, size_in: int, size_out: int | None = None,
                  size_h: int | None = None, beta: float = 0.0,
@@ -149,14 +171,22 @@ class ResnetBlockFC(nn.Module):
 
     def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         act = activation(self.beta)
-        net = dense(act(x), self.fc_0, self.cdt, int8)
-        dx = dense(act(net), self.fc_1, self.cdt, int8)
+        # with no group (or one rank) f and g are the identity and this is
+        # dense(act(net), fc_1): the same rounding points
+        net = dense(copy_to_group(act(x), self.tp_group), self.fc_0,
+                    self.cdt, int8)
+        partial = dense_nobias(act(net), self.fc_1, self.cdt, int8)
+        dx = (reduce_from_group(partial, self.tp_group)
+              + self.fc_1.bias.to(partial.dtype)).to(self.cdt)
         x_s = x if self.shortcut is None else dense(x, self.shortcut,
                                                     self.cdt, int8)
         return x_s + dx
 
 
 class ResnetFC(nn.Module):
+    # the 'model' group its blocks are split over (``parallel.shard_model``)
+    tp_group = None
+
     def __init__(self, d_in: int, d_out: int = 4, n_blocks: int = 5,
                  d_latent: int = 0, d_hidden: int = 128, beta: float = 0.0,
                  combine_layer: int = 1000, combine_type: str = "average",

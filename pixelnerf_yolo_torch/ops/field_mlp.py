@@ -34,7 +34,13 @@ parameters; the backward recomputes the plain ResnetFC (nn/resnetfc.py)
 on them and returns its gradients.  There is no backward kernel, as there
 is none in the JAX package.
 ``launches`` counts kernel launches per wrapper, ``variant_launches``
-per wrapper and variant ("mode/variant").
+per wrapper and variant ("mode/variant"), in this process: a rank of a
+sharded run counts its own launches.
+
+Under tensor parallelism (a ResnetFC split over a 'model' group) the
+stacked weights are the blocks gathered whole (``stack_params``), cached
+per weight version like any stack, and each rank launches the kernels on
+its own rays; the backward's plain recompute runs the split blocks.
 
 Rounding points (shared by kernels and twins): each Dense is an f32
 accumulation plus an f32 bias, then one cast to the compute dtype; the
@@ -61,6 +67,7 @@ from typing import Optional
 import torch
 
 from ..nn.code import PositionalEncoding
+from ..parallel.collectives import all_gather
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = {"field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu",
@@ -145,36 +152,50 @@ WEIGHT_NAMES = ("w_in", "b_in", "wz", "bz", "w0", "b0", "w1", "b1", "w0p",
                 "b0p", "w1p", "b1p", "w_out", "b_out")
 
 
+def _whole_block(blk, group):
+    """(fc_0 weight, fc_0 bias, fc_1 weight, fc_1 bias) of a block, the
+    tensor-parallel shards gathered whole over group."""
+    w0, b0 = blk.fc_0.weight.detach(), blk.fc_0.bias.detach()
+    w1, b1 = blk.fc_1.weight.detach(), blk.fc_1.bias.detach()
+    if group is not None:
+        w0 = torch.cat(all_gather(w0, group), dim=0)
+        b0 = torch.cat(all_gather(b0, group), dim=0)
+        w1 = torch.cat(all_gather(w1, group), dim=1)
+    return w0, b0, w1, b1
+
+
 def stack_params(mlp, compute_dtype: torch.dtype) -> StackedWeights:
     """Port ResnetFC -> stacked kernel weights (``_stack_params``).  With
-    combine_layer >= n_blocks the post-combine stacks are empty (0, ...)."""
+    combine_layer >= n_blocks the post-combine stacks are empty (0, ...).
+    A ResnetFC split over a 'model' group (``parallel.shard_model``) stacks
+    its blocks gathered whole: the kernels take whole weights, as XLA's
+    partitioner gathers a custom call's sharded operands."""
     cl = min(mlp.combine_layer, mlp.n_blocks)
+    blocks = [_whole_block(blk, mlp.tp_group) for blk in mlp.blocks]
 
-    def k(lin):
-        return lin.weight.detach().t().to(compute_dtype).contiguous()
+    def k(w):
+        return w.t().to(compute_dtype).contiguous()
 
-    def b(lin):
-        return lin.bias.detach().float().contiguous()
+    def b(v):
+        return v.float().contiguous()
 
-    def stack(fn, mods):
-        if not len(mods):
+    def stack(fn, blks, i):
+        if not len(blks):
             # every block layer is (H, H): block 0's shapes an empty stack
-            return fn(mlp.blocks[0].fc_0)[None][:0].contiguous()
-        return torch.stack([fn(m) for m in mods]).contiguous()
+            return fn(blocks[0][i])[None][:0].contiguous()
+        return torch.stack([fn(t[i]) for t in blks]).contiguous()
 
-    pre, post = mlp.blocks[:cl], mlp.blocks[cl:]
+    pre, post = blocks[:cl], blocks[cl:]
+    lin_z = [(m.weight.detach(), m.bias.detach()) for m in mlp.lin_z[:cl]]
     return StackedWeights(
-        w_in=k(mlp.lin_in), b_in=b(mlp.lin_in),
-        wz=stack(k, mlp.lin_z[:cl]), bz=stack(b, mlp.lin_z[:cl]),
-        w0=stack(k, [blk.fc_0 for blk in pre]),
-        b0=stack(b, [blk.fc_0 for blk in pre]),
-        w1=stack(k, [blk.fc_1 for blk in pre]),
-        b1=stack(b, [blk.fc_1 for blk in pre]),
-        w0p=stack(k, [blk.fc_0 for blk in post]),
-        b0p=stack(b, [blk.fc_0 for blk in post]),
-        w1p=stack(k, [blk.fc_1 for blk in post]),
-        b1p=stack(b, [blk.fc_1 for blk in post]),
-        w_out=k(mlp.lin_out), b_out=b(mlp.lin_out),
+        w_in=k(mlp.lin_in.weight.detach()), b_in=b(mlp.lin_in.bias.detach()),
+        wz=stack(k, lin_z, 0), bz=stack(b, lin_z, 1),
+        w0=stack(k, pre, 0), b0=stack(b, pre, 1),
+        w1=stack(k, pre, 2), b1=stack(b, pre, 3),
+        w0p=stack(k, post, 0), b0p=stack(b, post, 1),
+        w1p=stack(k, post, 2), b1p=stack(b, post, 3),
+        w_out=k(mlp.lin_out.weight.detach()),
+        b_out=b(mlp.lin_out.bias.detach()),
     )
 
 

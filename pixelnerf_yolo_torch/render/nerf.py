@@ -49,6 +49,15 @@ def _tensor(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.float32)
 
 
+def _pad_draws(d: torch.Tensor, n: int) -> torch.Tensor:
+    """(SB, B, k) draws over a shard's B rays, padded to its n chunk-padded
+    rays with each scene's first (the padding rays' outputs are dropped)."""
+    pad = n - d.shape[1]
+    if pad <= 0:
+        return d
+    return torch.cat([d, d[:, :1].expand(d.shape[0], pad, d.shape[2])], 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class NeRFRenderer:
     n_coarse: int = 128
@@ -139,6 +148,17 @@ class NeRFRenderer:
             if self.using_fine:
                 d["noise_f"] = rand(self.n_coarse + self.n_fine, torch.randn)
         return d
+
+    def batch_draws(self, sb: int, n_rays: int, cond, generator, device,
+                    train: bool = False, grad_remat: bool = False) -> dict:
+        """The draws a render of (sb, n_rays) rays makes: over its
+        chunk-padded rays, scene-major.  A sharded render takes its slice
+        of the global batch's."""
+        cb = self._chunk_rays(n_rays, cond.num_views_per_obj,
+                              latent_width=cond.latent_flat.shape[-1],
+                              grad_remat=grad_remat)
+        return self.draw(sb * (-(-n_rays // cb) * cb), generator, device,
+                         train=train)
 
     def _eval_model(self, model, cond, rays, z_samp, coarse: bool, sb: int,
                     return_latent: bool = False):
@@ -304,7 +324,8 @@ class NeRFRenderer:
         :param rays (SB, B, 8), moved to the renderer's device
         :param generator torch.Generator for the draws (default: torch's)
         :param draws optional pre-made draws, as ``draw`` returns them, over
-          the padded batch (SB * B_padded rows, scene-major)
+          the padded batch (SB * B_padded rows, scene-major), or over the
+          SB * B rays alone
         :return {"coarse": {"rgb" (SB,B,3), "depth" (SB,B), ["weights"]},
                  ["fine": {...}]}
         """
@@ -337,8 +358,8 @@ class NeRFRenderer:
         Bp = rays.shape[1]
         if draws is None:
             draws = self.draw(sb * Bp, generator, rays.device, train=train)
-        draws = {k: _tensor(v, rays.device).reshape(sb, Bp, -1)
-                 for k, v in draws.items()}
+        draws = {k: _pad_draws(_tensor(v, rays.device).reshape(
+            sb, -1, v.shape[-1]), Bp) for k, v in draws.items()}
 
         chunks = []
         for start in range(0, Bp, cb):
@@ -374,6 +395,12 @@ class NeRFRenderer:
                 :, :n_rays
             ]
         return ret
+
+    def bind_parallel(self, *args, **kwargs):
+        """``parallel.render.bind_parallel`` on this renderer."""
+        from ..parallel.render import bind_parallel
+
+        return bind_parallel(self, *args, **kwargs)
 
     # -- sample schedule ---------------------------------------------------
 

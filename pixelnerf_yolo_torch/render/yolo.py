@@ -55,6 +55,12 @@ class YoloRenderer:
         rows_budget = max(self.eval_batch_size * ns * K, budget)
         return max(1, rows_budget // max(K * ns * max(sb, 1), 1))
 
+    def bind_parallel(self, *args, **kwargs):
+        """``parallel.render.bind_parallel`` on this renderer."""
+        from ..parallel.render import bind_parallel
+
+        return bind_parallel(self, *args, **kwargs)
+
     @torch.no_grad()
     def __call__(self, model, cond, rays, generator=None, u=None):
         """Render detections along rays, for inference (no autograd graph).

@@ -3,20 +3,28 @@
     python -m pixelnerf_yolo_torch.train -c conf/exp/srn.conf -D <data> \
         -F srn -n <name> [-B 4] [-V 1] [--device cuda]
     python -m pixelnerf_yolo_torch.train -c conf/exp/yolo.conf -D <data> \
-        -F yolo -n <name> [-B 1] [-V 3] [--device cuda]
+        -F yolo -n <name> [-B 1] [-V 3] [--device cuda] \
+        [--gpu_id "0 1 2 3"] [--model_parallel 2]
 
 Counterpart of the repo's train/train.py with its flags (-B, -V,
---freeze_enc, --no_bbox_step, --fixed_test, --seed, --host_nms): the
-NaN-abort stop and the early-restart loop (rebuild everything with
-resume=False when the trainer reports "no_vis").  It trains on one
-device, the card unless ``--device cpu`` is given: the NeRF trainer for
+--freeze_enc, --no_bbox_step, --fixed_test, --seed, --model_parallel,
+--host_nms): the NaN-abort stop and the early-restart loop (rebuild
+everything with resume=False when the trainer reports "no_vis").  It
+trains on the card unless ``--device cpu`` is given: the NeRF trainer for
 the srn, dvr, dvr_gen, dvr_dtu and multi_obj formats (``renderer.type =
 nerf``), the YOLO trainer for yolo.  The ``encoder.pretrained`` graft is
 skipped when a checkpoint will overwrite the weights.
+
+A ``--gpu_id`` list of N ids trains on N ranks, one process each
+(``parallel.launch``; under torchrun the ranks are torchrun's) over the
+``('data', 'rays'[, 'model'])`` mesh of ``parallel.make_train_mesh``; every
+rank runs the loop and the early-restart decision on the same reduced
+losses and renders.  One id trains on one device, as before.
 """
 
 from __future__ import annotations
 
+from .. import parallel
 from ..config.args import parse_args
 from ..data import get_split_dataset
 from ..models import make_model
@@ -45,6 +53,12 @@ def extra_args(parser):
         help="Visualize the first test batch every time",
     )
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
+    parser.add_argument(
+        "--model_parallel", type=int, default=1,
+        help="Tensor-parallel degree: shard the field MLP's hidden dim "
+        "over a 'model' mesh axis (fc_0 column- / fc_1 row-parallel; must "
+        "divide the --gpu_id count and d_hidden)",
+    )
     parser.add_argument("--host_nms", action="store_true",
                         help="Use the host list NMS for metric intervals "
                         "instead of the padded device NMS")
@@ -56,10 +70,6 @@ def extra_args(parser):
 def build_trainer(args, conf, resume, splits=None):
     """The trainer of the conf over (train, val, test) splits, read from
     args.datadir unless given (datasets held in memory)."""
-    if len(args.gpu_id) > 1:
-        raise NotImplementedError(
-            "multi-GPU training is not ported yet (ROADMAP.md Queue 1 item "
-            "20)")
     args.resume = resume
     if splits is None:
         splits = get_split_dataset(args.dataset_format, args.datadir,
@@ -75,8 +85,20 @@ def build_trainer(args, conf, resume, splits=None):
     renderer = make_renderer(conf, lindisp=getattr(dset, "lindisp", False),
                              device=args.device)
     nviews = list(map(int, args.nviews.split()))
+    # the ('data', 'rays'[, 'model']) mesh of the ranks; one rank trains
+    # unsharded
+    n = parallel.world_size()
+    parallel.train_mesh_shape(n if n > 1 else len(args.gpu_id),
+                              args.batch_size,
+                              getattr(args, "model_parallel", 1))
+    mesh = None
+    if parallel.world_size() > 1:
+        mesh = parallel.make_train_mesh(
+            batch_size=args.batch_size,
+            model_parallel=getattr(args, "model_parallel", 1))
+        print("training mesh", dict(zip(mesh.mesh_dim_names, mesh.shape)))
     return make_trainer(args, conf, dset, val_dset, model, renderer,
-                        nviews, device=args.device)
+                        nviews, device=args.device, mesh=mesh)
 
 
 def build_and_train(args, conf, resume):
@@ -86,6 +108,11 @@ def build_and_train(args, conf, resume):
 def main(argv=None):
     args, conf = parse_args(extra_args, training=True,
                             default_ray_batch_size=128, argv=argv)
+    return parallel.launch(train, args, conf)
+
+
+def train(args, conf):
+    """The training loop with its early restarts, on one rank."""
     stop = build_and_train(args, conf, resume=args.resume)
     while stop == "no_vis":
         print("Restarting training from scratch (early_restart)")

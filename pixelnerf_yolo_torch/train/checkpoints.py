@@ -84,9 +84,11 @@ def load_weights(args, model, opt_init: bool = False) -> bool:
     return False
 
 
-def save_weights(args, model, opt_init: bool = False, epochNum: str = ""):
-    """Save the model's state_dict, copying the previous file to the
-    backup name first; with an epochNum only the backup copy is made."""
+def save_weights(args, model, opt_init: bool = False, epochNum: str = "",
+                 state=None):
+    """Save the model's state_dict (or ``state``, the one to write),
+    copying the previous file to the backup name first; with an epochNum
+    only the backup copy is made."""
     ckpt_name = "pixel_nerf_init" if opt_init else "pixel_nerf_latest"
     backup_name = (
         "pixel_nerf_init_backup" if opt_init else "pixel_nerf_backup" + epochNum
@@ -97,4 +99,4 @@ def save_weights(args, model, opt_init: bool = False, epochNum: str = ""):
     if osp.exists(ckpt_path):
         copyfile(ckpt_path, osp.join(d, backup_name))
     if epochNum == "":
-        save_state(ckpt_path, model.state_dict())
+        save_state(ckpt_path, model.state_dict() if state is None else state)

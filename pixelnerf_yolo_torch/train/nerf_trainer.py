@@ -1,6 +1,6 @@
 """PixelNeRF (NeRF-mode) trainer.
 
-Counterpart of pixelnerf_yolo_tpu/train/nerf_trainer.py on one device:
+Counterpart of pixelnerf_yolo_tpu/train/nerf_trainer.py:
   * per scene, on the host: a random subset of source views, then the ray
     batch: pixels inside the scene's per-view bounding boxes until
     ``--no_bbox_step``, uniform over every view's pixels after it
@@ -25,6 +25,12 @@ The render's draws come from a ``torch.Generator`` seeded ``seed + 2`` on
 the trainer's device, or are given (``draws=``, as
 ``NeRFRenderer.draw(..., train=True)`` returns them) as the JAX package's
 ``jax.random`` would make them.
+
+On a training mesh (``mesh=``, trainer.py) the ray batch pads to the
+mesh's ray multiple with rays of weight 0 (wrapped indices); the scenes
+shard over 'data' when it divides SB and the rays over 'rays', otherwise
+(the ragged variant) every rank takes every scene and the rays shard over
+'data' x 'rays'.  Every rank draws the global draws and renders its part.
 """
 
 from __future__ import annotations
@@ -34,7 +40,10 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..losses.rgb import get_rgb_loss, weighted_rgb_loss
+from ..parallel.collectives import synced_batch_norm
+from ..parallel.render import RenderParallel
 from ..utils import camera
 from ..utils.image import cmap
 from ..utils.metrics import psnr as psnr_fn
@@ -45,7 +54,7 @@ from .trainer import Trainer
 
 class PixelNeRFTrainer(Trainer):
     def __init__(self, args, conf, dset, val_dset, model, renderer, nviews,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__(dset, val_dset, args, conf.get_config("train"))
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -81,6 +90,7 @@ class PixelNeRFTrainer(Trainer):
         self.use_bbox = args.no_bbox_step > 0
 
         checkpoints.load_weights(args, self.model)
+        self.bind_mesh(mesh)
         self.init_opt_state(self.model.parameters())
 
         seed = getattr(args, "seed", 0)
@@ -88,9 +98,6 @@ class PixelNeRFTrainer(Trainer):
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 2)
 
     # -- persistence ---------------------------------------------------------
-
-    def save_model_state(self, epochNum: str = ""):
-        checkpoints.save_weights(self.args, self.model, epochNum=epochNum)
 
     def extra_save_state(self):
         checkpoints.save_json(self.renderer_state_path,
@@ -151,9 +158,16 @@ class PixelNeRFTrainer(Trainer):
         rgb_gt = np.stack(all_rgb_gt)  # (SB, R, 3)
         src_images = all_images[np.arange(SB)[:, None], image_ord]
         src_poses = all_poses[np.arange(SB)[:, None], image_ord]
-        # one device pads no ray: every weight is 1 (the JAX package's
-        # loss form, whose mesh padding adds rays of weight 0)
+        # pad to the mesh's ray multiple with rays of weight 0 (one device
+        # pads none), the indices wrapped when the pad outnumbers the rays
         w = np.ones(rays.shape[:2], dtype=np.float32)
+        pad_r = (-rays.shape[1]) % self._ray_multiple(SB)
+        if pad_r:
+            idx = np.arange(pad_r) % rays.shape[1]
+            rays = np.concatenate([rays, rays[:, idx]], axis=1)
+            rgb_gt = np.concatenate([rgb_gt, rgb_gt[:, idx]], axis=1)
+            w = np.concatenate(
+                [w, np.zeros((SB, pad_r), np.float32)], axis=1)
         return src_images, src_poses, all_focals, all_c, rays, rgb_gt, w
 
     # -- losses and the update -----------------------------------------------
@@ -161,30 +175,54 @@ class PixelNeRFTrainer(Trainer):
     def compute_losses(self, src_images, src_poses, focal, c, rays, rgb_gt,
                        w, train: bool, draws=None):
         """(loss for the gradient, {"rc", "rf", "t"}).  The arrays are
-        ``_assemble``'s; draws optional, over SB * R rows."""
+        ``_assemble``'s; draws optional, over SB * R rows.  On a mesh the
+        loss is this rank's part and the reported losses the global ones."""
         dev = self.device
-        self._mark("start")
-        cond = self.model.encode(src_images, src_poses, focal, c=c,
-                                 train=train)
-        self._mark("encoder")
-        out = self.renderer.render(
-            self.model, cond, torch.as_tensor(rays, device=dev),
-            generator=self._gen, draws=draws, train=train)
-        self._mark("render")
+        rays = torch.as_tensor(rays, device=dev)
         rgb_gt = torch.as_tensor(rgb_gt, dtype=torch.float32, device=dev)
         w = torch.as_tensor(w, device=dev)
+        w_total = None
+        scenes, bn_group = slice(None), None
+        if self.mesh is not None:
+            # this rank's part of the global batch; the global denominator
+            scenes, n_sh, i_sh, bn_group = self._shards(rays.shape[0])
+            w_total = torch.sum(w)
+            L = rays.shape[1] // n_sh
+            rays_of = slice(i_sh * L, (i_sh + 1) * L)
+            src_images, src_poses, focal = (
+                src_images[scenes], src_poses[scenes], focal[scenes])
+            c = c[scenes] if c is not None else None
+        self._mark("start")
+        with synced_batch_norm(bn_group):
+            cond = self.model.encode(src_images, src_poses, focal, c=c,
+                                     train=train)
+        self._mark("encoder")
+        if self.mesh is not None:
+            if draws is None:
+                draws = self.renderer.batch_draws(
+                    *rays.shape[:2], cond, self._gen, dev, train=train,
+                    grad_remat=train and torch.is_grad_enabled()
+                    and getattr(self.model, "remat", False))
+            draws = parallel.shard_draws(draws, rays.shape[:1], rays_of,
+                                         scenes, dev)
+            rays, rgb_gt, w = (t[scenes, rays_of] for t in (rays, rgb_gt, w))
+        out = self.renderer.render(
+            self.model, cond, rays, generator=self._gen, draws=draws,
+            train=train)
+        self._mark("render")
         rc = weighted_rgb_loss(self.rgb_coarse_crit, out["coarse"]["rgb"],
-                               rgb_gt, w)
+                               rgb_gt, w, w_total)
         loss = rc * self.lambda_coarse
         loss_dict = {"rc": loss}
         if "fine" in out:
             rf = weighted_rgb_loss(self.rgb_fine_crit, out["fine"]["rgb"],
-                                   rgb_gt, w)
+                                   rgb_gt, w, w_total)
             loss = loss + rf * self.lambda_fine
             loss_dict["rf"] = rf * self.lambda_fine
         loss_dict["t"] = loss
         self._mark("loss")
-        return loss, {k: v.detach() for k, v in loss_dict.items()}
+        return loss, self.reduce_losses(
+            {k: v.detach() for k, v in loss_dict.items()})
 
     def calc_losses(self, data, is_train=True, global_step=0, draws=None):
         if "images" not in data:
@@ -248,9 +286,9 @@ class PixelNeRFTrainer(Trainer):
                                  poses[views_src][None], focal,
                                  c=c)
         test_rays = cam_rays[view_dest].reshape(1, H * W, -1)
-        render_dict = self.renderer(self.model, cond, test_rays,
-                                    generator=self._gen, draws=draws,
-                                    want_weights=True)
+        render_dict = RenderParallel(
+            self.renderer, self.model, mesh=self.mesh, want_weights=True)(
+            cond, test_rays, generator=self._gen, draws=draws)
 
         def panels(name, tag):
             p = {k: v[0].float().cpu().numpy()

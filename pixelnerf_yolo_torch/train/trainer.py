@@ -13,6 +13,18 @@ is the JAX package's optax ``scale_by_adam`` followed by a step of -lr.
 With ``accu_grad = k > 1`` the gradients of k train steps are averaged and
 the optimizer steps once, as ``optax.MultiSteps`` does; a resume restarts
 an accumulation window.
+
+On a training mesh (``parallel.make_train_mesh``; ``bind_mesh``) every
+rank takes rank 0's initial weights, the field MLP splits over 'model'
+(``parallel.shard_model``), each rank's loss is its part of the global
+loss (its local weighted sums over the global denominators) and the
+gradients sum over the ray-sharding group (every rank with the same
+'model' coordinate) before each Adam step, which runs on the rank's
+parameters: whole, or its tensor-parallel shard with its shard of the
+moments.  Only rank 0 prints, logs, writes visuals and writes
+checkpoints, which hold the single-device layout (the shards gathered).
+The loop's decisions (NaN abort, early restart) read reduced losses and
+all-gathered renders, so every rank makes the same one.
 """
 
 from __future__ import annotations
@@ -25,7 +37,9 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.loader import DataLoader
+from ..parallel.collectives import all_reduce_, all_reduce_flat_
 from ..utils.image import write_png
 from ..utils.misc import print_with_time, stall_watchdog_from_env
 from . import checkpoints
@@ -52,7 +66,19 @@ class _JsonlWriter:
             self.add_scalar(f"{tag}/{k}", v, global_step)
 
 
+class _NullWriter:
+    """The writer of a rank that does not log."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def add_scalars(self, *args, **kwargs):
+        pass
+
+
 def make_writer(path):
+    if not parallel.is_main():
+        return _NullWriter()
     try:
         from torch.utils.tensorboard import SummaryWriter
 
@@ -87,6 +113,13 @@ class Trainer:
             shuffle=False,
             num_workers=conf.get_int("num_workers_test", min(4, cores)),
         )
+
+        if parallel.world_size() > 1:
+            # one global batch for every rank, loaded by rank 0
+            self.train_data_loader = parallel.BroadcastLoader(
+                self.train_data_loader)
+            self.test_data_loader = parallel.BroadcastLoader(
+                self.test_data_loader)
 
         self.num_total_batches = len(self.train_dataset)
         self.exp_name = args.name
@@ -138,6 +171,55 @@ class Trainer:
 
         self.visual_path = osp.join(args.visual_path, args.name)
         self.conf = conf
+        # the training mesh (``bind_mesh``) and its ray-sharding group
+        self.mesh = None
+        self.dp_group = None
+
+    # -- the mesh ------------------------------------------------------------
+
+    def bind_mesh(self, mesh) -> None:
+        """Train over mesh (None: one device): rank 0's weights on every
+        rank, the field MLP split over 'model'.  Call before
+        ``init_opt_state``."""
+        self.mesh = mesh
+        if mesh is None:
+            return
+        parallel.broadcast_module(self.model)
+        parallel.shard_model(self.model, mesh)
+        self.dp_group = parallel.mesh_group(mesh, parallel.ray_axes(mesh))
+
+    def _shards(self, n_scenes: int):
+        """How this rank takes its part of a global batch of n_scenes:
+        (scene slice, ray shards, its ray shard, BatchNorm group).  Scenes
+        shard over 'data' when it divides n_scenes, rays over 'rays', and
+        BatchNorm syncs over 'data'; otherwise (the ragged variant) every
+        rank takes every scene, rays shard over 'data' x 'rays' and each
+        rank's BatchNorm statistics are already global."""
+        m = self.mesh
+        data_n = parallel.axis_size(m, parallel.DATA_AXIS)
+        if n_scenes % data_n:
+            return (slice(None), parallel.n_shards(m),
+                    parallel.shard_index(m), None)
+        d = parallel.axis_index(m, parallel.DATA_AXIS)
+        per = n_scenes // data_n
+        return (slice(d * per, (d + 1) * per),
+                parallel.axis_size(m, parallel.RAY_AXIS),
+                parallel.axis_index(m, parallel.RAY_AXIS),
+                m.get_group(parallel.DATA_AXIS) if data_n > 1 else None)
+
+    def _ray_multiple(self, n_scenes: int) -> int:
+        """The multiple a ray (or chunk) axis pads to on the mesh."""
+        return self._shards(n_scenes)[1] if self.mesh is not None else 1
+
+    def reduce_losses(self, loss_dict: dict) -> dict:
+        """Each rank's parts of the losses summed over the ray-sharding
+        group: the global losses, the same on every rank."""
+        if self.dp_group is None:
+            return loss_dict
+        keys = list(loss_dict)
+        v = all_reduce_(torch.stack([loss_dict[k] for k in keys]),
+                        self.dp_group)
+        return dict(zip(keys, v.unbind()))
 
     # -- state owned by subclasses -----------------------------------------
 
@@ -148,7 +230,9 @@ class Trainer:
             if os.path.exists(self.optim_state_path):
                 try:
                     self.optimizer.load_state_dict(
-                        checkpoints.load_state(self.optim_state_path))
+                        parallel.shard_optimizer_state(
+                            checkpoints.load_state(self.optim_state_path),
+                            self.model))
                 except Exception:
                     import warnings
 
@@ -177,6 +261,11 @@ class Trainer:
         if self._accum < self.accu_grad:
             return
         self._accum = 0
+        if self.dp_group is not None:
+            # the parameters are f32: one flat all-reduce
+            all_reduce_flat_([p.grad for g in self.optimizer.param_groups
+                              for p in g["params"] if p.grad is not None],
+                             self.dp_group)
         for group in self.optimizer.param_groups:
             group["lr"] = self._lr
             if self.accu_grad > 1:
@@ -215,7 +304,12 @@ class Trainer:
         pass
 
     def save_model_state(self, epochNum: str = ""):
-        raise NotImplementedError()
+        """The weights in the single-device layout (every rank gathers its
+        shards; rank 0 writes)."""
+        state = parallel.full_state_dict(self.model)
+        if parallel.is_main():
+            checkpoints.save_weights(self.args, self.model,
+                                     epochNum=epochNum, state=state)
 
     def train_step(self, data, global_step):
         raise NotImplementedError()
@@ -365,10 +459,13 @@ class Trainer:
                         self.save_model_state()
                         if watchdog is not None:
                             watchdog.beat()
+                        optim_state = parallel.full_optimizer_state(
+                            self.optimizer, self.model)
+                    if batch % self.save_interval == 0 and (
+                        epoch > 0 or batch > 0
+                    ) and parallel.is_main():
                         checkpoints.save_state(
-                            self.optim_state_path,
-                            self.optimizer.state_dict()
-                        )
+                            self.optim_state_path, optim_state)
                         checkpoints.save_json(
                             self.lrsched_state_path, {"epoch": epoch}
                         )
@@ -400,7 +497,7 @@ class Trainer:
                             self.writer.add_scalars(
                                 "vis", vis_vals, global_step=step_id
                             )
-                        if vis is not None:
+                        if vis is not None and parallel.is_main():
                             vis_u8 = (np.clip(vis, 0, 1) * 255).astype(
                                 np.uint8
                             )

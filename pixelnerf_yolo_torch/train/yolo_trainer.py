@@ -1,6 +1,6 @@
 """YOLO (detection-mode) trainer.
 
-Counterpart of pixelnerf_yolo_tpu/train/yolo_trainer.py on one device:
+Counterpart of pixelnerf_yolo_tpu/train/yolo_trainer.py:
   * per scene: rays for the selected source views as render targets
     (``gen_rays_yolo_np`` at the cell-scaled H, W, focal and c) and the
     grid targets per cell, padded to whole chunks of yolo.ray_batch_size
@@ -27,8 +27,16 @@ The field runs through the fused kernels when the model takes them
 
 The coarse draws come from a ``torch.Generator`` seeded ``seed + 2`` on
 the trainer's device, or are given (``u=``) as the JAX package's
-``jax.random`` would make them.  Multi-GPU (ROADMAP.md Queue 1 item 20)
-is not ported yet.
+``jax.random`` would make them.
+
+On a training mesh (``mesh=``, trainer.py) each chunk's rays pad to the
+mesh's ray multiple with ignore-flag rows; the scenes shard over 'data'
+when it divides SB and each chunk's rays over 'rays' (rays (SB, k, chunk,
+8) as P(data, None, rays)), otherwise (the ragged variant) every rank
+takes every scene and the rays shard over 'data' x 'rays' (P(None, None,
+data x rays)).  Each masked mean of a chunk divides the rank's masked sum
+by the chunk's global count (``YoloLoss(counts=...)``), so the ranks'
+losses sum to the unsharded loss.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..detect.boxes import (
     calculate_precision_recall_f1,
     calculate_tp_fp_fn,
@@ -50,6 +59,8 @@ from ..detect.boxes import (
 from ..detect.map import map_from_raw_boxes
 from ..detect.nms import tp_fp_fn_padded
 from ..losses.yolo import YoloLoss
+from ..parallel.collectives import synced_batch_norm
+from ..parallel.render import RenderParallel
 from ..utils import camera
 from . import checkpoints
 from .nerf_trainer import PixelNeRFTrainer
@@ -60,7 +71,7 @@ LOSS_KEYS = ("t", "box_loss", "object_loss", "no_object_loss", "class_loss")
 
 class YOLOTrainer(Trainer):
     def __init__(self, args, conf, dset, val_dset, model, renderer, nviews,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__(dset, val_dset, args, conf.get_config("train"))
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -111,14 +122,12 @@ class YOLOTrainer(Trainer):
             print("nms_threshold_per_scale", self.nms_threshold_per_scale)
 
         checkpoints.load_weights(args, self.model)
+        self.bind_mesh(mesh)
         self.init_opt_state(self.model.parameters())
 
         seed = getattr(args, "seed", 0)
         self._rng = np.random.default_rng(seed + 1)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 2)
-
-    def save_model_state(self, epochNum: str = ""):
-        checkpoints.save_weights(self.args, self.model, epochNum=epochNum)
 
     def extra_save_state(self):
         checkpoints.save_json(self.renderer_state_path, {})
@@ -192,6 +201,16 @@ class YOLOTrainer(Trainer):
         rays = rays.reshape(SB, k, R, 8)
         targets = targets.reshape(SB, k, R, self.num_anchors_per_scale, 6)
         chunk_anchors = self.anchors[np.asarray(scale_list)]  # (k, A, 2)
+        # pad every chunk to the mesh's ray multiple with ignore-flag rows
+        # (one device pads none), the indices wrapped
+        pad_c = (-R) % self._ray_multiple(SB)
+        if pad_c:
+            idx = np.arange(pad_c) % R
+            rays = np.concatenate([rays, rays[:, :, idx]], axis=2)
+            pad_t = np.zeros((SB, k, pad_c) + targets.shape[3:],
+                             targets.dtype)
+            pad_t[..., 0] = -1.0
+            targets = np.concatenate([targets, pad_t], axis=2)
         src_images = all_images[np.arange(SB)[:, None], image_ord]
         src_poses = all_poses[np.arange(SB)[:, None], image_ord]
         return (src_images, src_poses, all_focals, all_c, rays, targets,
@@ -202,32 +221,58 @@ class YOLOTrainer(Trainer):
     def compute_losses(self, src_images, src_poses, focal, c, rays, targets,
                        anchors, n_real, train: bool, u=None):
         """(loss for the gradient, {key: reported loss}).  The arrays are
-        ``_assemble``'s; u optional (SB*k*R, n_coarse) coarse draws."""
+        ``_assemble``'s; u optional (SB*k*R, n_coarse) coarse draws.  On a
+        mesh the loss is this rank's part and the reported losses the
+        global ones."""
         dev = self.device
         A = self.num_anchors_per_scale
-        self._mark("start")
-        cond = self.model.encode(src_images, src_poses, focal, c=c,
-                                 train=train)
-        self._mark("encoder")
         rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
+        targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
         SB, k, chunk = rays.shape[:3]
+        counts = [None] * (SB * k)
+        scenes, bn_group = slice(None), None
+        if self.mesh is not None:
+            # this rank's part of the global batch and draws; each chunk's
+            # global mask counts (the masked means' denominators)
+            scenes, n_sh, i_sh, bn_group = self._shards(SB)
+            L = chunk // n_sh
+            rays_of = slice(i_sh * L, (i_sh + 1) * L)
+            if u is None:
+                u = torch.rand((SB * k * chunk, self.renderer.n_coarse),
+                               generator=self._gen, device=dev)
+            u = parallel.shard_draws(u, (SB, k), rays_of, scenes,
+                                     dev)
+            prob = targets[scenes, ..., 0]
+            counts = list(zip((prob == 1).sum(dim=(2, 3)).reshape(-1),
+                              (prob == 0).sum(dim=(2, 3)).reshape(-1)))
+            rays, targets = rays[scenes, :, rays_of], targets[scenes, :,
+                                                              rays_of]
+            src_images, src_poses, focal, c = (
+                src_images[scenes], src_poses[scenes], focal[scenes],
+                c[scenes])
+            SB, chunk = rays.shape[0], rays.shape[2]
+        self._mark("start")
+        with synced_batch_norm(bn_group):
+            cond = self.model.encode(src_images, src_poses, focal, c=c,
+                                     train=train)
+        self._mark("encoder")
         render = self.renderer.render(
             self.model, cond, rays.reshape(SB, k * chunk, 8),
             generator=self._gen, u=u,
         ).reshape(SB * k, chunk, A, 7)
         self._mark("render")
-        targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
         targets = targets.reshape(SB * k, chunk, A, 6)
         anchors = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
         losses = torch.stack([
             torch.stack(self.yolo_loss(render[i], targets[i],
-                                       anchors[i % k]))
+                                       anchors[i % k], counts=counts[i]))
             for i in range(SB * k)
         ])  # (SB*k, 5)
         # the gradient of the SUM of the chunk losses (padding chunks are
         # all-ignore and add 0); the report averages over the real chunks
         total = losses[:, 0].sum()
-        mean_losses = losses.detach().sum(dim=0) / n_real
+        sums = self.reduce_losses({"sum": losses.detach().sum(dim=0)})
+        mean_losses = sums["sum"] / n_real
         self._mark("loss")
         return total, dict(zip(LOSS_KEYS, mean_losses))
 
@@ -281,8 +326,9 @@ class YOLOTrainer(Trainer):
                 H_scaled, focal / cs, c / cs, self.z_near, self.z_far,
             )
             test_rays = cam_rays[view_dest].reshape(-1, 8)
-            render = self.renderer(self.model, cond, test_rays,
-                                   generator=self._gen)
+            render = RenderParallel(self.renderer, self.model,
+                                    mesh=self.mesh)(cond, test_rays,
+                                                    generator=self._gen)
             render = render.float().cpu().numpy().reshape(
                 1, H_scaled, W_scaled, self.num_anchors_per_scale, 7)
             gt_grid = np.asarray(all_bboxes[view_dest][scale_idx])[
@@ -461,14 +507,15 @@ class YOLOTrainer(Trainer):
 
 
 def make_trainer(args, conf, dset, val_dset, model, renderer, nviews,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """The trainer of the conf's renderer type, on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU), over the training mesh ``mesh``
+    (``parallel.make_train_mesh``; None: one device)."""
     trainer_type = conf.get_string("renderer.type", "nerf")
     if trainer_type == "yolo":
         return YOLOTrainer(args, conf, dset, val_dset, model, renderer,
-                           nviews, device=device)
+                           nviews, device=device, mesh=mesh)
     if trainer_type == "nerf":
         return PixelNeRFTrainer(args, conf, dset, val_dset, model, renderer,
-                                nviews, device=device)
+                                nviews, device=device, mesh=mesh)
     raise NotImplementedError("Unsupported trainer type")

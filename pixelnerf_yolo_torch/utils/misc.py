@@ -1,5 +1,5 @@
-"""Small host utilities: timestamped printing, parameter counting and the
-stall watchdog.
+"""Small host utilities: timestamped printing, unwrapping a render
+binding, parameter counting and the stall watchdog.
 
 Counterpart of pixelnerf_yolo_tpu/utils/misc.py; ``count_parameters``
 counts a torch ``state_dict``'s (or a module's) tensors.
@@ -14,6 +14,12 @@ def print_with_time(*args, **kwargs):
     timestamp = datetime.datetime.now().strftime("%H:%M:%S")
     message = " ".join(map(str, args))
     print(f"[{timestamp}] {message}", **kwargs)
+
+
+def get_module(net):
+    """A parallel render binding's model (``RenderParallel.model``);
+    anything else as it is."""
+    return getattr(net, "model", net)
 
 
 def count_parameters(params) -> int:

@@ -390,13 +390,3 @@ def test_cli_without_device_needs_the_card(nerf_setup, monkeypatch):
     monkeypatch.chdir(tdir)
     with pytest.raises((RuntimeError, AssertionError)):
         _port_cli("eval_approx").main(_nerf_argv(root, ["-P", "0"]))
-
-
-@pytest.mark.parametrize("name", PORT_CLIS)
-def test_cli_multi_gpu_raises(nerf_setup, yolo_setup, monkeypatch, name):
-    root = yolo_setup[0] if "yolo" in name else nerf_setup[0]
-    cwd = yolo_setup[2] if "yolo" in name else nerf_setup[2]
-    monkeypatch.chdir(cwd)
-    argv = (_yolo_argv(root) if "yolo" in name else _nerf_argv(root, []))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        _port_cli(name).main(argv + ["--device", "cpu", "--gpu_id", "0 1"])

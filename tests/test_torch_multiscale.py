@@ -57,7 +57,9 @@ class _JaxKeyed:
         self.renderer = renderer
         self.key = jax.random.PRNGKey(seed + 2)
 
-    def __call__(self, model, cond, rays, generator=None):
+    def __call__(self, model, cond, rays, generator=None, u=None):
+        # the renderer's signature; this wrapper supplies the draws itself
+        assert u is None
         self.key, sub = jax.random.split(self.key)
         n = rays.reshape(-1, 8).shape[0]
         u = jax_yolo_draws(sub, n, self.renderer.n_coarse)

@@ -142,13 +142,6 @@ def test_cli_defaults_to_the_card(run, monkeypatch):
             cli.main(base)
 
 
-def test_cli_multi_gpu_raises(run, monkeypatch):
-    tmp, argv, _ = run
-    monkeypatch.chdir(tmp)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cli.main(argv + ["--gpu_id", "0 1", "-n", "multi"])
-
-
 @pytest.fixture(scope="module")
 def trainer_setup(tmp_path_factory):
     """(a maker of fresh CPU trainers on the dry-run conf, a train batch,
