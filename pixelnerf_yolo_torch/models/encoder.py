@@ -22,6 +22,7 @@ from torch import nn
 from ..nn.resnet import STAGE_WIDTHS, ResNetFeatures
 from ..ops.grid_sample import grid_sample_nhwc, grid_sample_nhwc_q8
 from ..ops.resize import resize_area, resize_bilinear
+from ..utils.profiling import scope
 from .yolo_backbone import YOLO_BACKBONE_LATENT, ConvEncoder, YOLOBackbone
 
 
@@ -73,7 +74,8 @@ class SpatialEncoder(nn.Module):
                   int(x.shape[3] * self.feature_scale))
             x = (resize_bilinear(x, hw, align_corners=True)
                  if self.feature_scale > 1.0 else resize_area(x, hw))
-        latents = self.model(x, self.cdt, train)
+        with scope("encoder_trunk"):
+            latents = self.model(x, self.cdt, train)
         # the reference's "nearest " conf value (trailing space) turns
         # align_corners off for the upsampling; any other value keeps it on
         align = self.index_interp != "nearest "
@@ -123,8 +125,18 @@ def index_latent(latent_flat: torch.Tensor, latent_hw: tuple[int, int],
       points (``interp_matmul``), which zero NaN table entries
     :return (B, N, C)
     """
-    if image_size is not None:
-        uv = uv * (latent_scaling_of(latent_hw, uv.device) / image_size) - 1.0
+    with scope("encoder_index"):
+        if image_size is not None:
+            with scope("encoder_index_pre"):
+                uv = (uv * (latent_scaling_of(latent_hw, uv.device)
+                            / image_size) - 1.0)
+        return _lookup(latent_flat, latent_hw, uv, index_interp,
+                       index_padding, scales, nan_scrub_ok)
+
+
+def _lookup(latent_flat, latent_hw, uv, index_interp, index_padding, scales,
+            nan_scrub_ok):
+    """``index_latent``'s sampling of uv in [-1, 1]."""
     if scales is not None:
         if index_interp.strip() != "bilinear":
             raise NotImplementedError(

@@ -77,6 +77,7 @@ from ..nn.resnetfc import ResnetFC, block_out_contexts
 from ..ops import field_mlp
 from ..ops.grid_sample import quantize_rows_int8
 from ..utils.indexing import repeat_interleave
+from ..utils.profiling import scope
 from .encoder import ImageEncoder, index_latent, make_encoder
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -493,18 +494,19 @@ class PixelNeRF(nn.Module):
         non-reentrant checkpoint: the backward replays it (kernel launches
         included) instead of keeping its activations.
         """
-        if not (self.remat and torch.is_grad_enabled()):
-            return self._forward_impl(cond, xyz, coarse=coarse,
-                                      viewdirs=viewdirs, latent=latent)
-        if self.remat_gather:
-            latent = None
-        kwargs = {}
-        if self._remat_context is not None:
-            kwargs["context_fn"] = self._remat_context
-        return checkpoint(
-            functools.partial(self._forward_impl, coarse=coarse),
-            cond, xyz, viewdirs=viewdirs, latent=latent,
-            use_reentrant=False, **kwargs)
+        with scope("model_inference"):
+            if not (self.remat and torch.is_grad_enabled()):
+                return self._forward_impl(cond, xyz, coarse=coarse,
+                                          viewdirs=viewdirs, latent=latent)
+            if self.remat_gather:
+                latent = None
+            kwargs = {}
+            if self._remat_context is not None:
+                kwargs["context_fn"] = self._remat_context
+            return checkpoint(
+                functools.partial(self._forward_impl, coarse=coarse),
+                cond, xyz, viewdirs=viewdirs, latent=latent,
+                use_reentrant=False, **kwargs)
 
     def _forward_impl(self, cond, xyz, coarse=True, viewdirs=None,
                       latent=None):

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import scope
+
 
 class PositionalEncoding(nn.Module):
     def __init__(self, num_freqs: int = 6, d_in: int = 3,
@@ -37,6 +39,10 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x (..., d_in) -> (..., d_out)"""
+        with scope("positional_enc"):
+            return self._encode(x)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         xf = x.reshape(-1, self.d_in)
         embed = xf[:, None, :] * self._freqs + self._phases  # (N, 2F, d_in)

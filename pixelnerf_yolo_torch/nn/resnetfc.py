@@ -42,33 +42,77 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.collectives import (copy_to_group, group_size,
+                                    reduce_from_group)
 from ..utils.indexing import combine_interleaved
+from ..utils.profiling import scope
 from .quant import dot_w8a8
 
 
 def dense(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype,
-          int8: bool = False) -> torch.Tensor:
+          int8: bool = False, wide: bool = False) -> torch.Tensor:
     """flax's Dense in the compute dtype; with int8 the dynamic int8
-    product, its f32 bias, then one cast (JAX ``apply_dense``)."""
+    product, its f32 bias, then one cast (JAX ``apply_dense``).  ``wide``
+    takes the product in f32 (``_WideLinear``), so that its input gradient
+    is f32 too, and rounds it once before the bias."""
     if int8:
         y = dot_w8a8(x.to(cdt), m.weight.t())
         if m.bias is not None:
             y = y + m.bias
         return y.to(cdt)
-    y = F.linear(x.to(cdt), m.weight.to(cdt))
+    y = dense_nobias(x, m, cdt, wide=wide).to(cdt)
     if m.bias is not None:
         y = y + m.bias.to(cdt)
     return y
 
 
 def dense_nobias(x: torch.Tensor, m: nn.Linear, cdt: torch.dtype,
-                 int8: bool = False) -> torch.Tensor:
-    """``dense`` without the bias: a row-parallel shard's partial product
-    (int8: in f32 until the bias, as ``dense`` keeps it)."""
+                 int8: bool = False, wide: bool = False) -> torch.Tensor:
+    """``dense`` without the bias or the rounding: a row-parallel shard's
+    partial product, in f32 when ``wide`` (int8: in f32, as ``dense``
+    keeps it until the bias)."""
     if int8:
         return dot_w8a8(x.to(cdt), m.weight.t())
+    if wide:
+        return _WideLinear.apply(x, m.weight.to(cdt))
     return F.linear(x.to(cdt), m.weight.to(cdt))
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of compute-dtype matrices with an f32 result: on the card one
+    GEMM of the compute-dtype operands that writes f32 (``torch.mm``'s
+    ``out_dtype``: the tensor cores, f32 accumulation), elsewhere the f32
+    product of the same values."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _WideLinear(torch.autograd.Function):
+    """x @ w.T of compute-dtype values (x may be f32 holding them) with an
+    f32 result and an f32 input gradient: the partial products a split
+    block sums over ranks.  Its caller rounds the result to the compute
+    dtype, so the incoming gradient holds compute-dtype values and is
+    taken in that dtype exactly; the weight gradient is rounded to w's
+    dtype, as F.linear's is."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
+        ctx.save_for_backward(x2, w)
+        ctx.lead = x.shape[:-1]
+        return _mm_f32(x2, w.t()).reshape(*ctx.lead, w.shape[0])
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2, w = ctx.saved_tensors
+        g = gy.reshape(-1, gy.shape[-1]).to(w.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _mm_f32(g, w).reshape(*ctx.lead, w.shape[1])
+        if ctx.needs_input_grad[1]:
+            gw = _mm_f32(g.t(), x2).to(w.dtype)
+        return gx, gw
 
 
 class _BlockOut(threading.local):
@@ -170,14 +214,27 @@ class ResnetBlockFC(nn.Module):
             self.shortcut = _linear(size_in, size_out, generator, bias=False)
 
     def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        with scope("resblock"):
+            return self._block(x, int8)
+
+    def _block(self, x: torch.Tensor, int8: bool) -> torch.Tensor:
         act = activation(self.beta)
-        # with no group (or one rank) f and g are the identity and this is
-        # dense(act(net), fc_1): the same rounding points
-        net = dense(copy_to_group(act(x), self.tp_group), self.fc_0,
-                    self.cdt, int8)
-        partial = dense_nobias(act(net), self.fc_1, self.cdt, int8)
-        dx = (reduce_from_group(partial, self.tp_group)
-              + self.fc_1.bias.to(partial.dtype)).to(self.cdt)
+        cdt, group = self.cdt, self.tp_group
+        # split over ranks, the partial products (fc_1's; fc_0's input
+        # gradient, summed by f's backward) are f32 and rounded once after
+        # the sum, as XLA (its CPU lowering) sums a bf16 product split over
+        # 'model'.  With no group (or one rank) f and g are the identity,
+        # wide is off, and this is dense(act(dense(act(x), fc_0)), fc_1):
+        # the same rounding points.  int8's partial products are f32
+        # already.
+        wide = group_size(group) > 1 and not int8 and cdt != torch.float32
+        h = act(x)
+        net = dense(copy_to_group(h.float() if wide else h, group),
+                    self.fc_0, cdt, int8, wide=wide)
+        total = reduce_from_group(
+            dense_nobias(act(net), self.fc_1, cdt, int8, wide=wide), group)
+        dx = ((total + self.fc_1.bias).to(cdt) if int8
+              else total.to(cdt) + self.fc_1.bias.to(cdt))
         x_s = x if self.shortcut is None else dense(x, self.shortcut,
                                                     self.cdt, int8)
         return x_s + dx
@@ -234,6 +291,11 @@ class ResnetFC(nn.Module):
         :param int8 the hidden layers through the dynamic int8 product
         :return (..., d_out) f32, the leading dim divided by NS if combined
         """
+        with scope("resnetfc_infer"):
+            return self._infer(zx, combine_inner_dims, latent_projected,
+                               int8)
+
+    def _infer(self, zx, combine_inner_dims, latent_projected, int8):
         cdt = self.cdt
         zx = zx.to(cdt)
         d_lat = (self.n_lin_z * self.d_hidden if latent_projected

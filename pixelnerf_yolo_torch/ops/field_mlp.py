@@ -65,6 +65,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..nn.code import PositionalEncoding
 from ..parallel.collectives import all_gather
@@ -361,7 +362,9 @@ def full_pe_plain(base, latent, w: StackedWeights, code) -> torch.Tensor:
 
 
 def pre_combine_pe_plain(base, latent, w: StackedWeights, code) -> torch.Tensor:
-    return _pre(pe_features(base, code), latent, w)
+    # the PE inside the kernel: no profiler cut point of its own
+    zfeat = torch.cat([code._encode(base[:, :3]), base[:, 3:]], dim=-1)
+    return _pre(zfeat, latent, w)
 
 
 def pre_combine_plain(zfeat, latent, w: StackedWeights) -> torch.Tensor:
@@ -875,6 +878,49 @@ def _(h, weights, packed):
 def _(h, weights, packed):
     return h.new_empty((h.shape[0], weights[12].shape[1]),
                        dtype=torch.float32)
+
+
+# FLOP formulas of the kernel ops (``torch.utils.flop_counter``): the
+# products of their plain twins, which ``FlopCounterMode`` counts on the
+# same shapes (2 x rows x in x out a Dense; the PE, the activations and
+# the bias adds are elementwise and count 0), so that a render through the
+# kernels counts what the plain route counts.
+
+
+def field_flops(rows: int, weight_shapes, pre: bool, post: bool) -> int:
+    """The twins' products on rows rows, from the shapes of StackedWeights'
+    tensors (WEIGHT_NAMES order): lin_in and n_pre x (lin_z, fc_0, fc_1)
+    with pre, n_post x (fc_0, fc_1) and lin_out with post."""
+    d_in, H = weight_shapes[0]
+    n_pre, d_latent = weight_shapes[2][:2]
+    n_post = weight_shapes[8][0]
+    d_out = weight_shapes[12][1]
+    flops = 0
+    if pre:
+        flops += 2 * rows * (d_in * H + n_pre * (d_latent * H + 2 * H * H))
+    if post:
+        flops += 2 * rows * (n_post * 2 * H * H + H * d_out)
+    return flops
+
+
+@register_flop_formula(torch.ops.pixelnerf_yolo.full_pe)
+def _(base, latent, weights, packed, num_freqs, freq_factor, out_shape=None):
+    return field_flops(latent[0], weights, True, True)
+
+
+@register_flop_formula(torch.ops.pixelnerf_yolo.pre_combine_pe)
+def _(base, latent, weights, packed, num_freqs, freq_factor, out_shape=None):
+    return field_flops(latent[0], weights, True, False)
+
+
+@register_flop_formula(torch.ops.pixelnerf_yolo.pre_combine)
+def _(zfeat, latent, weights, packed, out_shape=None):
+    return field_flops(latent[0], weights, True, False)
+
+
+@register_flop_formula(torch.ops.pixelnerf_yolo.post_combine)
+def _(h, weights, packed, out_shape=None):
+    return field_flops(h[0], weights, False, True)
 
 
 def _op_weights(mode: str, w: StackedWeights, t: torch.Tensor):

@@ -41,6 +41,7 @@ import torch
 
 from ..ops.composite import composite
 from ..ops.ray_sampling import sample_coarse, sample_fine, sample_fine_depth
+from ..utils.profiling import scope
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -182,8 +183,9 @@ class NeRFRenderer:
 
     def _composite_pass(self, model, cond, rays, z_samp, coarse, sb,
                         return_latent: bool = False, sigma_noise=None):
-        out = self._eval_model(model, cond, rays, z_samp, coarse, sb,
-                               return_latent=return_latent)
+        with scope("renderer_composite"):
+            out = self._eval_model(model, cond, rays, z_samp, coarse, sb,
+                                   return_latent=return_latent)
         latent = None
         if return_latent:
             out, latent = out
@@ -215,8 +217,9 @@ class NeRFRenderer:
         vd = None
         if model.use_viewdirs:
             vd = rays[:, None, 3:6].expand(B, Ku, 3).reshape(sb, -1, 3)
-        out = model.forward(cond, pts_u.reshape(sb, -1, 3), coarse=False,
-                            viewdirs=vd, latent=lat_u).reshape(B, Ku, -1)
+        with scope("renderer_composite"):
+            out = model.forward(cond, pts_u.reshape(sb, -1, 3), coarse=False,
+                                viewdirs=vd, latent=lat_u).reshape(B, Ku, -1)
         z_sorted, perm = torch.sort(z_union, dim=-1, stable=True)
         out_sorted = torch.gather(
             out.float(), 1, perm[..., None].expand(-1, -1, out.shape[-1])
@@ -341,8 +344,9 @@ class NeRFRenderer:
         rays = _tensor(rays, self.device)
         if rays.ndim != 3:
             raise ValueError(f"rays must be (SB, B, 8), got {tuple(rays.shape)}")
-        return self._render(model, cond, rays, generator, draws, want_weights,
-                            train)
+        with scope("renderer_forward"):
+            return self._render(model, cond, rays, generator, draws,
+                                want_weights, train)
 
     def _render(self, model, cond, rays, generator, draws, want_weights,
                 train):

@@ -232,6 +232,7 @@ class PixelNeRFTrainer(Trainer):
             with torch.no_grad():
                 return self.compute_losses(*inputs, train=False,
                                            draws=draws)[1]
+        self._last_update = (inputs, {"draws": draws})
         total, loss_dict = self.compute_losses(*inputs, train=True,
                                                draws=draws)
         self.backward_and_step(total)

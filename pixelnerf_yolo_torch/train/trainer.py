@@ -42,6 +42,7 @@ from ..data.loader import DataLoader
 from ..parallel.collectives import all_reduce_, all_reduce_flat_
 from ..utils.image import write_png
 from ..utils.misc import print_with_time, stall_watchdog_from_env
+from ..utils.profiling import scope
 from . import checkpoints
 
 
@@ -153,6 +154,9 @@ class Trainer:
         self._lr = float(args.lr)
         self.optimizer = None
         self._accum = 0  # train steps accumulated into the gradients
+        # (assembled inputs, draws) of the latest train update, which
+        # ``update_cost_analysis`` runs again
+        self._last_update = None
         # when a list, train steps append (stage, CUDA event) at the end of
         # each stage (``_mark``): the stage split of a step on the card
         self.stage_events = None
@@ -261,18 +265,68 @@ class Trainer:
         if self._accum < self.accu_grad:
             return
         self._accum = 0
-        if self.dp_group is not None:
-            # the parameters are f32: one flat all-reduce
-            all_reduce_flat_([p.grad for g in self.optimizer.param_groups
-                              for p in g["params"] if p.grad is not None],
-                             self.dp_group)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self._lr
-            if self.accu_grad > 1:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(self.accu_grad)
-        self.optimizer.step()
+        with scope("optimizer"):
+            if self.dp_group is not None:
+                # the parameters are f32: one flat all-reduce
+                all_reduce_flat_([p.grad for g in self.optimizer.param_groups
+                                  for p in g["params"] if p.grad is not None],
+                                 self.dp_group)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self._lr
+                if self.accu_grad > 1:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            p.grad.div_(self.accu_grad)
+            self.optimizer.step()
+
+    def update_cost_analysis(self):
+        """The executed FLOPs of one train update (JAX
+        ``update_cost_analysis``): ``{"flops": F}`` for the latest train
+        step's update (encoder and render forward, the loss, the backward
+        with the kernel route's plain recompute, Adam), or None before the
+        first train step.
+
+        F is counted by ``utils.profiling.count_flops`` over one more
+        update of that step's assembled inputs and draws, after which the
+        weights and buffers, the gradients, the Adam state, the generators
+        and the renderer's schedule are put back as they were.  Its
+        formulas are ``torch.utils.flop_counter``'s: products and
+        convolutions (the kernel ops their twins' products), so Adam and
+        every other elementwise op count 0.  There is no "bytes accessed":
+        ``FlopCounterMode`` counts no bytes.  On a mesh every rank calls
+        it (the update's collectives run), and F is this rank's part."""
+        if self._last_update is None:
+            return None
+        import copy
+
+        from ..utils.profiling import count_flops
+
+        inputs, draws = self._last_update
+        weights = {k: v.clone() for k, v in self.model.state_dict().items()}
+        grads = [(p, p.grad) for p in self.model.parameters()]
+        opt = copy.deepcopy(self.optimizer.state_dict())
+        gen = self._gen.get_state() if hasattr(self, "_gen") else None
+        kept = (self._accum, self.accu_grad, self.stage_events,
+                copy.deepcopy(getattr(self, "renderer_sched_state", None)))
+        self._accum, self.accu_grad, self.stage_events = 0, 1, None
+
+        def update():
+            total, _ = self.compute_losses(*inputs, train=True, **draws)
+            self.backward_and_step(total)
+
+        try:
+            counts = count_flops(update)[1]
+        finally:
+            self.model.load_state_dict(weights)
+            for p, g in grads:
+                p.grad = g
+            self.optimizer.load_state_dict(opt)
+            if gen is not None:
+                self._gen.set_state(gen)
+            self._accum, self.accu_grad, self.stage_events, sched = kept
+            if sched is not None:
+                self.renderer_sched_state = sched
+        return {"flops": float(sum(counts.values()))}
 
     def _mark(self, stage: str) -> None:
         if self.stage_events is not None:

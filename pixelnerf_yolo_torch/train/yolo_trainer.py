@@ -281,6 +281,7 @@ class YOLOTrainer(Trainer):
         if not is_train:
             with torch.no_grad():
                 return self.compute_losses(*inputs, train=False, u=u)[1]
+        self._last_update = (inputs, {"u": u})
         total, loss_dict = self.compute_losses(*inputs, train=True, u=u)
         self.backward_and_step(total)
         self._mark("adam")

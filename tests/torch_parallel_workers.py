@@ -252,3 +252,46 @@ def train_leg(rank, n, spec):
                         cond, case["rays"], draws=case["render_draws"]))
         out[case["name"]] = res
     return out
+
+
+def bf16_tp_leg(rank, n, spec):
+    """tests/test_torch_parallel_bf16_tp.py's ranks: one bf16
+    ResnetBlockFC split over every rank (its output and gradients, the
+    weight gradients gathered whole), then one bf16 update of the case on
+    its mesh with every gradient gathered whole."""
+    from pixelnerf_yolo_torch.nn.resnetfc import ResnetBlockFC
+
+    blk = ResnetBlockFC(spec["block"]["fc_0.weight"].shape[1],
+                        dtype=torch.bfloat16)
+    blk.load_state_dict({k: torch.as_tensor(v)
+                         for k, v in spec["block"].items()})
+    plan = parallel.tp_plan(((k, p.shape) for k, p in
+                             blk.named_parameters()), n)
+    with torch.no_grad():
+        for k, p in blk.named_parameters():
+            if plan[k] is not None:
+                size = p.shape[plan[k]] // n
+                p.data = p.data.narrow(plan[k], rank * size, size).clone()
+    blk.tp_group = dist.group.WORLD
+    x = torch.as_tensor(spec["x"]).to(torch.bfloat16).requires_grad_(True)
+    y = blk(x)
+    (y.float() * torch.as_tensor(spec["gy"])).sum().backward()
+    out = {"block": {
+        "y": to_np(y), "x_grad": to_np(x.grad),
+        "grads": {k: to_np(parallel.gather_tp(p.grad, plan[k],
+                                              dist.group.WORLD))
+                  for k, p in blk.named_parameters()}}}
+
+    case = spec["case"]
+    mesh = parallel.make_train_mesh(batch_size=case["mesh_batch"],
+                                    model_parallel=case["mp"])
+    tr = build_trainer(case, mesh, spec["tmp"])
+    losses = tr.train_step(case["batch"], u=torch.as_tensor(case["u"]))
+    group = parallel.model_group(tr.model)
+    out["losses"] = {k: float(v) for k, v in losses.items()}
+    out["grads"] = {
+        k: to_np(parallel.gather_tp(p.grad, parallel._tp_dim(k, p.ndim),
+                                    group))
+        for k, p in tr.model.named_parameters() if p.grad is not None}
+    out["state"] = to_np(parallel.full_state_dict(tr.model))
+    return out

@@ -83,8 +83,9 @@ def scene(ns=2, size=32, seed=0):
     return images, poses[None], np.float32(size * 0.9)
 
 
-# The YOLO scene.  chip_smoke.py (which runs where JAX is absent) keeps its
-# own copy of these numbers in yolo_scene(); a change here goes there too.
+# The YOLO scene.  pixelnerf_yolo_torch/operating_points.py (whose scenes
+# chip_smoke.py runs where JAX is absent) keeps its own copy of these
+# numbers in yolo_scene(); a change here goes there too.
 YOLO_NEAR, YOLO_FAR = 1.0, 3.0
 
 
