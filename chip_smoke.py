@@ -174,12 +174,20 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      equals the plain render's exactly, and its kernels' share equals
      bench.py's field_flops_per_ray times the rays the field evaluates
      (the chunk-padded count); update_cost_analysis of each train step
-     through the kernels at least the plain step's.
+     through the kernels at least the plain step's;
+ 18. the port's benchmark (pixelnerf_yolo_torch/bench.py): ``python -m
+     pixelnerf_yolo_torch.bench`` in a subprocess with a timeout for
+     BENCH_CONFIG nerf, yolo (16,384 rays) and train_yolo at
+     BENCH_ITERS=2, with the kernels built above and neither the card's
+     probe nor its ceilings; each last line must be its record, naming
+     this card, with a value above 0, 0 < mfu_executed <= 1.05 and the
+     config's kernels (bench.KERNELS) in its kernel_launches.
 The launch counters (per wrapper and per wrapper and variant) are zeroed
 just before each render path (3, 4, 5, 6, 12, 13, 14, 16, 17) and each
 kernel-route training step (8, 9, 10, 14, 16) or evaluation (10, 11) and
-read just after it (in phase 16 (b) by each rank); a kernel of a path
-that never launched fails it.
+read just after it (in phase 16 (b) by each rank; in phase 18 by each
+bench subprocess over its timed iterations); a kernel of a path that
+never launched fails it.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; the last is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -3644,6 +3652,60 @@ def profile_path(device):
     return ok, paths
 
 
+BENCH_CONFIGS = ("nerf", "yolo", "train_yolo")
+# the phase's budget (90 s) leaves out what the phases above have shown:
+# the card's probe and ceilings (it has answered for minutes), and yolo's
+# 65,536-ray view (16,384 rays: phase 4's 128x128 view)
+BENCH_ENV = {"BENCH_ITERS": "2", "PNY_BENCH_PROBE_TIMEOUT": "0",
+             "BENCH_NO_PROBE": "1"}
+BENCH_RAYS = {"yolo": "16384"}
+BENCH_TIMEOUT = 240  # seconds one config's bench run may take
+BENCH_MFU_MAX = 1.05
+
+
+def bench_path(device):
+    """Phase 18: the port's bench, one config a subprocess.  Returns (ok,
+    the kernel launches of each config's timed iterations)."""
+    import torch
+
+    from pixelnerf_yolo_torch import bench
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kind = torch.cuda.get_device_name(device)
+    env = {k: v for k, v in bench.child_env(**BENCH_ENV).items()
+           if k not in ("BENCH_INNER", "BENCH_DEVICE", "BENCH_RAYS")}
+    ok, paths = True, {}
+    for cfg in BENCH_CONFIGS:
+        t = time.perf_counter()
+        rc, out = bench.run_bounded(
+            [sys.executable, "-m", "pixelnerf_yolo_torch.bench"],
+            BENCH_TIMEOUT,
+            dict(env, BENCH_CONFIG=cfg,
+                 **({"BENCH_RAYS": BENCH_RAYS[cfg]} if cfg in BENCH_RAYS
+                    else {})))
+        lines = out.decode(errors="replace").strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            rec = {}
+        launches = rec.get("kernel_launches", {})
+        want = [f"{m}/{fm.variant(m, torch.bfloat16)}"
+                for m in bench.KERNELS[cfg]]
+        good = (rc == 0 and rec.get("device") == kind
+                and rec.get("value", 0) > 0
+                and 0 < rec.get("mfu_executed", 0) <= BENCH_MFU_MAX
+                and all(launches.get(k, 0) > 0 for k in want))
+        print(f"bench {cfg}: rc {rc}, {time.perf_counter() - t:.1f} s, "
+              f"kernels wanted {want}: {'ok' if good else 'FAILED'}\n  "
+              + "\n  ".join(lines[-3:]), flush=True)
+        ok &= good
+        paths[f"bench_{cfg}"] = launches
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok, paths
+
+
 def main() -> int:
     import torch
 
@@ -3670,7 +3732,7 @@ def main() -> int:
 
 
 def run(device) -> bool:
-    """Phases 2-17; prints the kernels line; True when every check held."""
+    """Phases 2-18; prints the kernels line; True when every check held."""
     import torch
 
     from pixelnerf_yolo_torch.ops import field_mlp as fm
@@ -3784,6 +3846,8 @@ def run(device) -> bool:
     ok &= pok
     pok, profile_launches = profile_path(device)
     ok &= pok
+    bok, bench_launches = bench_path(device)
+    ok &= bok
     paths = {"nerf": nerf_launches, "yolo": yolo_launches,
              "yolo_f32": yolo32_launches, "detection": det_launches,
              "viewdirs": vd_launches,
@@ -3791,7 +3855,7 @@ def run(device) -> bool:
              "train_step_f32": train_launches["float32"],
              **nerf_train_launches, **ms_launches, **eval_launches,
              **serve_launches, **interchange_launches, **option_launches,
-             **parallel_launches, **profile_launches}
+             **parallel_launches, **profile_launches, **bench_launches}
     timed = ("rows", "checked_rows", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "tflops")
     kernels = []

@@ -201,9 +201,11 @@ train { print_interval = 2
 TRAIN_NERF_RAYS = 8192
 
 
-def train_nerf_conf(compute_dtype: str = "bfloat16") -> Config:
+def train_nerf_conf(compute_dtype: str = "bfloat16", **widths) -> Config:
+    """widths: flagship_conf's d_hidden, backbone, num_layers (the bench's
+    ``train_scaling`` takes a narrow model)."""
     conf = parse_string(_TRAIN_NERF_SCHEMA)
-    flag = flagship_conf(compute_dtype=compute_dtype)
+    flag = flagship_conf(compute_dtype=compute_dtype, **widths)
     for k in ("model", "renderer"):
         conf.put(k, flag.get_config(k))
     return conf

@@ -7,7 +7,9 @@ config); ``yolo_scene`` the YOLO flagship's (its views keep a real share
 of the samples in front of the source cameras' z = 0 plane);
 ``train_dataset`` the one scene of ``bench.py``'s ``train_yolo`` point and
 ``nerf_train_dataset`` the SRN-format scene of its ``train_nerf`` point,
-both held in memory (no image files, so neither imageio nor cv2)."""
+both held in memory (no image files, so neither imageio nor cv2); with
+more scenes and smaller views they are the datasets of the port bench's
+``train_scaling``."""
 
 from __future__ import annotations
 
@@ -65,13 +67,13 @@ def yolo_scene(ns, size, seed=0):
             np.eye(4, dtype=np.float32)[None])
 
 
-def train_dataset(conf, size=TRAIN_SIZE, extra=None):
-    """One scene held in memory: seeded size x size images, the extrinsics
-    of ``yolo_scene`` (its 3 source views and the target camera) and grid
-    targets at each of the conf's scales from the port's
-    ``YOLODataset._get_all_bboxes``, of TRAIN_BOXES and of the
-    [x, y, w, h, class] boxes that extra ({view: boxes}, optional) adds to
-    a view.  No image files, so neither imageio nor cv2 is needed."""
+def train_dataset(conf, size=TRAIN_SIZE, extra=None, n_scenes=1):
+    """n_scenes scenes held in memory: seeded size x size images (scene s
+    from seed 4 + s), the extrinsics of ``yolo_scene`` (its 3 source views
+    and the target camera) and grid targets at each of the conf's scales
+    from the port's ``YOLODataset._get_all_bboxes``, of TRAIN_BOXES and of
+    the [x, y, w, h, class] boxes that extra ({view: boxes}, optional) adds
+    to a view.  No image files, so neither imageio nor cv2 is needed."""
     import numpy as np
 
     from pixelnerf_yolo_torch.data.yolo import YOLODataset
@@ -82,25 +84,27 @@ def train_dataset(conf, size=TRAIN_SIZE, extra=None):
         def __init__(self):
             self.set_target_conf(conf)
             self.z_near, self.z_far, self.lindisp = YOLO_NEAR, YOLO_FAR, False
-            rng = np.random.default_rng(4)
-            images = rng.normal(size=(TRAIN_VIEWS, 3, size,
-                                      size)).astype(np.float32)
             shift = np.array([0.05, 0.03, 0, 0, 0])
-            self.item = {
-                "path": "memory", "img_id": 0, "focal": focal[0],
-                "c": c[0], "images": images.clip(-1, 1),
-                "poses": np.concatenate([poses[0], target]),
-                "bboxes": [self._get_all_bboxes(
-                    (np.array(TRAIN_BOXES) + v * shift).tolist()
-                    + (extra or {}).get(v, []),
-                    size, size) for v in range(TRAIN_VIEWS)],
-            }
+            bboxes = [self._get_all_bboxes(
+                (np.array(TRAIN_BOXES) + v * shift).tolist()
+                + (extra or {}).get(v, []), size, size)
+                for v in range(TRAIN_VIEWS)]
+            self.items = []
+            for s in range(n_scenes):
+                rng = np.random.default_rng(4 + s)
+                images = rng.normal(size=(TRAIN_VIEWS, 3, size,
+                                          size)).astype(np.float32)
+                self.items.append({
+                    "path": "memory", "img_id": s, "focal": focal[0],
+                    "c": c[0], "images": images.clip(-1, 1),
+                    "poses": np.concatenate([poses[0], target]),
+                    "bboxes": bboxes})
 
         def __len__(self):
-            return 1
+            return len(self.items)
 
         def __getitem__(self, index):
-            return self.item
+            return self.items[index]
 
     return MemoryYOLODataset()
 
@@ -122,48 +126,52 @@ def look_at(origin, target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):
     return c2w.astype(np.float32)
 
 
-def nerf_train_dataset():
-    """One SRN-format scene held in memory (no image files, so neither
-    imageio nor cv2): 6 views of a seeded textured object on a white
-    background, cameras on a ring 1.3 from the origin looking at it, the
-    object's box in each view from ``data.base.mask_bbox``, poses in the
-    SRN dataset's convention (camera-to-world times diag(1, -1, -1, 1))."""
+def nerf_train_dataset(size=NERF_TRAIN_SIZE, n_objs=1):
+    """n_objs SRN-format scenes held in memory (no image files, so neither
+    imageio nor cv2): 6 views of a seeded textured object (object o from
+    seed 6 + o) on a white background, cameras on a ring 1.3 from the
+    origin looking at it, the object's box in each view from
+    ``data.base.mask_bbox``, poses in the SRN dataset's convention
+    (camera-to-world times diag(1, -1, -1, 1))."""
     import numpy as np
 
     from pixelnerf_yolo_torch.data.base import (image_to_tensor_balanced,
                                                 mask_bbox)
 
-    S, V = NERF_TRAIN_SIZE, NERF_TRAIN_VIEWS
-    rng = np.random.default_rng(6)
+    S, V = size, NERF_TRAIN_VIEWS
     flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
     yy, xx = np.mgrid[0:S, 0:S]
-    images, poses, bboxes = [], [], []
-    for v in range(V):
-        theta = 2 * np.pi * v / V
-        c2w = look_at([1.3 * np.sin(theta), 0.3, 1.3 * np.cos(theta)])
-        poses.append(c2w @ flip)
-        # an ellipse whose centre and size move with the view, filled with
-        # a seeded color field
-        cx, cy = S / 2 + 8 * np.sin(theta), S / 2 + 4 * np.cos(theta)
-        inside = (((xx - cx) / (0.28 * S)) ** 2
-                  + ((yy - cy) / (0.22 * S)) ** 2) <= 1.0
-        img = np.full((S, S, 3), 255, np.uint8)
-        tex = rng.integers(20, 230, size=(S // 8, S // 8, 3))
-        img[inside] = np.kron(tex, np.ones((8, 8, 1)))[inside]
-        images.append(image_to_tensor_balanced(img))
-        bboxes.append(mask_bbox(inside[..., None], "memory"))
+    items = []
+    for o in range(n_objs):
+        rng = np.random.default_rng(6 + o)
+        images, poses, bboxes = [], [], []
+        for v in range(V):
+            theta = 2 * np.pi * v / V
+            c2w = look_at([1.3 * np.sin(theta), 0.3, 1.3 * np.cos(theta)])
+            poses.append(c2w @ flip)
+            # an ellipse whose centre and size move with the view, filled
+            # with a seeded color field
+            cx, cy = S / 2 + 8 * np.sin(theta), S / 2 + 4 * np.cos(theta)
+            inside = (((xx - cx) / (0.28 * S)) ** 2
+                      + ((yy - cy) / (0.22 * S)) ** 2) <= 1.0
+            img = np.full((S, S, 3), 255, np.uint8)
+            tex = rng.integers(20, 230, size=(S // 8, S // 8, 3))
+            img[inside] = np.kron(tex, np.ones((8, 8, 1)))[inside]
+            images.append(image_to_tensor_balanced(img))
+            bboxes.append(mask_bbox(inside[..., None], "memory"))
+        items.append({"path": "memory", "img_id": o,
+                      "focal": np.float32(1.2 * S),
+                      "c": np.array([S / 2, S / 2], np.float32),
+                      "images": np.stack(images), "bbox": np.stack(bboxes),
+                      "poses": np.stack(poses).astype(np.float32)})
 
     class MemorySRNDataset:
         z_near, z_far, lindisp = NERF_NEAR, NERF_FAR, False
-        item = {"path": "memory", "img_id": 0, "focal": np.float32(1.2 * S),
-                "c": np.array([S / 2, S / 2], np.float32),
-                "images": np.stack(images), "bbox": np.stack(bboxes),
-                "poses": np.stack(poses).astype(np.float32)}
 
         def __len__(self):
-            return 1
+            return len(items)
 
         def __getitem__(self, index):
-            return self.item
+            return items[index]
 
     return MemorySRNDataset()

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import glob
 import gzip
@@ -145,11 +146,13 @@ def render_point(config, device, dtype="bfloat16", fused="auto",
 
 
 def train_point(config, device, workdir, dtype="bfloat16",
-                fused="auto") -> Point:
+                fused="auto", rays=None, puts=None) -> Point:
     """A train operating point: ``bench.py``'s ``train_yolo`` or
     ``train_nerf`` (``config/flagship.py``) on ``operating_points``'
     in-memory scene, weights from seed 0, one ``train_step`` an
-    iteration."""
+    iteration.  rays: the rays of a step (``yolo.ray_batch_size`` or
+    ``-R``; default the conf's 1,024 or TRAIN_NERF_RAYS); puts: {key:
+    value} put into the conf (``model.remat``, ...)."""
     seed = 0
     import argparse as _argparse
 
@@ -164,6 +167,10 @@ def train_point(config, device, workdir, dtype="bfloat16",
 
     yolo = config == "train_yolo"
     conf = (train_yolo_conf if yolo else train_nerf_conf)(dtype)
+    for key, value in (puts or {}).items():
+        conf.put(key, value)
+    if rays and yolo:
+        conf.put("yolo.ray_batch_size", rays)
     model = make_model(conf.get_config("model"), device=device, seed=seed)
     model.use_fused_mlp = fused
     renderer = make_renderer(conf, device=device)
@@ -175,7 +182,7 @@ def train_point(config, device, workdir, dtype="bfloat16",
         visual_path=os.path.join(workdir, "vis"), epochs=1, lr=1e-4,
         gamma=1.0, batch_size=1, nviews=str(ns), freeze_enc=None,
         no_bbox_step=100000, fixed_test=None, seed=seed,
-        ray_batch_size=TRAIN_NERF_RAYS)
+        ray_batch_size=rays or TRAIN_NERF_RAYS)
     for d in (args.logs_path, args.visual_path,
               os.path.join(args.checkpoints_path, args.name)):
         os.makedirs(d, exist_ok=True)
@@ -243,14 +250,29 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def timed(point, device, iters) -> list:
-    """ms of each of iters synchronized iterations (host clock)."""
+def activities(device) -> list:
+    """The profiler activities of a trace: the CPU and, on the card, CUDA."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def timed(step, device, iters, mark=False) -> list:
+    """ms of each of iters synchronized iterations of step() (host clock);
+    mark: each inside an ``ITERATION`` range (for a trace)."""
+    import torch
+
     out = []
     for _ in range(iters):
         _sync(device)
         t0 = time.perf_counter()
-        point.step()
-        _sync(device)
+        with (torch.profiler.record_function(ITERATION) if mark
+              else contextlib.nullcontext()):
+            step()
+            _sync(device)
         out.append((time.perf_counter() - t0) * 1e3)
     return out
 
@@ -270,22 +292,12 @@ def capture(point, device, iters, outdir, warmup=2) -> dict:
     for _ in range(warmup):
         point.step()
     _sync(device)
-    untraced = timed(point, device, iters)
+    untraced = timed(point.step, device, iters)
     flops = by_stage(count_flops(point.step)[1])
     _sync(device)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
     before = dict(fm.variant_launches)
-    traced = []
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            _sync(device)
-            t0 = time.perf_counter()
-            with torch.profiler.record_function(ITERATION):
-                point.step()
-                _sync(device)
-            traced.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=activities(device)) as prof:
+        traced = timed(point.step, device, iters, mark=True)
     launches = {k: v - before.get(k, 0)
                 for k, v in fm.variant_launches.items()
                 if v - before.get(k, 0)}

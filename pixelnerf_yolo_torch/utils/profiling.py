@@ -22,7 +22,7 @@ import threading
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import flop_registry
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 # the JAX package's cut points (scripts/profile_trace.py's KNOWN_SCOPES),
 # in its order; the innermost scope of an op names its stage
@@ -100,6 +100,16 @@ class _StageFlops(TorchDispatchMode):
             self.counts[(current_stage(), str(packet))] += int(
                 formula(*args, **kwargs, out_val=out))
         return out
+
+
+def _int_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """``torch._int_mm`` (``model.mlp_int8``'s int8 products): 2 m n k, as
+    ``mm``; ``torch.utils.flop_counter`` has no formula for it."""
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
+if torch.ops.aten._int_mm not in flop_registry:
+    register_flop_formula(torch.ops.aten._int_mm)(_int_mm_flops)
 
 
 def count_flops(fn, *args, **kwargs):
