@@ -1,0 +1,7 @@
+"""Host-device syncs a view inside the program's scopes and spans."""
+
+from benchmark import program_spans
+
+
+def read(sl):
+    return program_spans.syncs(sl)

@@ -53,8 +53,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      backward) and one without, from the same weights, batch, views and
      draws, compared (losses, every parameter's gradient); then each
      route's step time (median of 10 after 2 warm-up steps), peak memory
-     and stage split (CUDA events: encoder, render, loss, backward,
-     Adam), and the loss falling over 10 steps on one batch;
+     and stage split (one step under torch.profiler: device ms by the
+     innermost program scope or span, the spans' host ms, the syncs),
+     and the loss falling over 10 steps on one batch;
   9. NeRF training: the NeRF trainer at bench.py's train_nerf point
      (config/flagship.py::train_nerf_conf: the flagship NeRF model and
      renderer, 8,192 rays a step, one source view) on one SRN-format
@@ -888,8 +889,7 @@ TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}
 # reading held to the same tolerance.
 MAX_MOVED = 0.1
 SMOOTH_AGG = "soft_count"
-TRAIN_WARMUP, TRAIN_TIMED, TRAIN_STAGE_STEPS, TRAIN_FIT_STEPS = 2, 10, 3, 10
-STAGES = ("encoder", "render", "loss", "backward", "adam")
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIT_STEPS = 2, 10, 10
 
 
 def train_args(tmp):
@@ -907,27 +907,61 @@ def train_args(tmp):
     return args
 
 
-def train_steps(trainer, batch, n, stages=False, **step_args):
+def train_steps(trainer, batch, n, **step_args):
     """n synchronized train steps (step_args: the pre-made draws, u= or
-    draws=): (host ms of each, losses of each, the CUDA-event ms of each
-    stage of each step when stages)."""
+    draws=): (host ms of each, losses of each)."""
     import torch
 
-    times, losses, split = [], [], []
+    times, losses = [], []
     for _ in range(n):
-        trainer.stage_events = [] if stages else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = trainer.train_step(batch, **step_args)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
-        if stages:
-            ev = trainer.stage_events
-            split.append({ev[i][0]: ev[i - 1][1].elapsed_time(ev[i][1])
-                          for i in range(1, len(ev))})
-    trainer.stage_events = None
-    return times, losses, split
+    return times, losses
+
+
+def stage_split(trainer, batch, tmp, **step_args):
+    """The stage split of one train step under ``torch.profiler``:
+    (device ms of each stage, by the innermost program scope or span
+    around each launch, ``bwd:<scope>`` in the backward, as
+    ``profile_trace.reduce`` gives them; the recorder's spans, host ms
+    each with its children; its counters, ``syncs:<span>`` among them)."""
+    import torch
+
+    from pixelnerf_yolo_torch import profile_trace as pt
+    from pixelnerf_yolo_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=pt.activities("cuda")) as prof:
+        with torch.profiler.record_function(pt.ITERATION):
+            trainer.train_step(batch, **step_args)
+            torch.cuda.synchronize()
+    path = os.path.join(tmp, "stage_split.trace.json")
+    prof.export_chrome_trace(path)
+    red = pt.reduce(pt.load_trace(path))
+    os.remove(path)
+    spans = pt.span_table(profiling.records())
+    return ({k: ms for k, (ms, _) in red.stages.items()},
+            {k: ms for k, (_, ms) in spans.items()}, profiling.counters())
+
+
+def print_split(split):
+    """Print stage_split's tables."""
+    stages, spans, counters = split
+    print("  stage split of one profiled step (device ms by innermost "
+          "scope or span, profile_trace): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(stages.items(),
+                                                key=lambda kv: -kv[1])),
+          flush=True)
+    print("  spans (host ms, with their children): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(spans.items(),
+                                          key=lambda kv: -kv[1]))
+          + "; counters: " + ", ".join(f"{k} {v}" for k, v in
+                                       sorted(counters.items())),
+          flush=True)
 
 
 @contextlib.contextmanager
@@ -1060,7 +1094,7 @@ def train_one(device, dtype_name, tmp, step_launches, results) -> bool:
             fm.reset_launches()
             record = []
             with sample_argmax(record):
-                _, losses, _ = train_steps(trainer, batch, 1, u=u)
+                _, losses = train_steps(trainer, batch, 1, u=u)
             route[fused] = (losses[0], {
                 n: None if p.grad is None else p.grad.detach().clone()
                 for n, p in model.named_parameters()},
@@ -1132,23 +1166,18 @@ def train_one(device, dtype_name, tmp, step_launches, results) -> bool:
         model.use_fused_mlp = fused
         train_steps(trainer, batch, TRAIN_WARMUP)
         torch.cuda.reset_peak_memory_stats()
-        times, _, _ = train_steps(trainer, batch, TRAIN_TIMED)
+        times, _ = train_steps(trainer, batch, TRAIN_TIMED)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        _, _, split = train_steps(trainer, batch, TRAIN_STAGE_STEPS,
-                                  stages=True)
+        split = stage_split(trainer, batch, tmp)
         ms = statistics.median(times)
-        stages = {k: statistics.median([s[k] for s in split])
-                  for k in STAGES}
         res[label] = {"ms_median": ms, "ms_min": min(times),
                       "ms_max": max(times), "peak_gib": peak,
-                      "stages_ms": stages}
+                      "stages_ms": split[0], "spans_ms": split[1]}
         print(f"  {label:6s} route: {ms:.3f} ms/step median of "
               f"{TRAIN_TIMED} (min {min(times):.3f}, max {max(times):.3f}) "
               f"after {TRAIN_WARMUP} warm-up steps; peak memory "
-              f"{peak:.2f} GiB; stage split (CUDA events, median of "
-              f"{TRAIN_STAGE_STEPS} steps, ms): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
-              flush=True)
+              f"{peak:.2f} GiB", flush=True)
+        print_split(split)
     print(f"  kernel / plain route step time "
           f"{res['kernel']['ms_median'] / res['plain']['ms_median']:.3f}",
           flush=True)
@@ -1266,7 +1295,7 @@ def nerf_both_routes(trainer, model, batch, draws, restart):
         restart()
         model.use_fused_mlp = fused
         fm.reset_launches()
-        _, losses, _ = train_steps(trainer, batch, 1, draws=draws)
+        _, losses = train_steps(trainer, batch, 1, draws=draws)
         route[fused] = (losses[0], {
             n: None if p.grad is None else p.grad.detach().clone()
             for n, p in model.named_parameters()},
@@ -1345,23 +1374,18 @@ def nerf_train_one(device, dtype_name, tmp, step_launches, results) -> bool:
         model.use_fused_mlp = fused
         train_steps(trainer, batch, TRAIN_WARMUP, draws=draws)
         torch.cuda.reset_peak_memory_stats()
-        times, _, _ = train_steps(trainer, batch, TRAIN_TIMED, draws=draws)
+        times, _ = train_steps(trainer, batch, TRAIN_TIMED, draws=draws)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        _, _, split = train_steps(trainer, batch, TRAIN_STAGE_STEPS,
-                                  stages=True, draws=draws)
+        split = stage_split(trainer, batch, tmp, draws=draws)
         ms = statistics.median(times)
-        stages = {k: statistics.median([s[k] for s in split])
-                  for k in STAGES}
         res[label] = {"ms_median": ms, "ms_min": min(times),
                       "ms_max": max(times), "peak_gib": peak,
-                      "stages_ms": stages}
+                      "stages_ms": split[0], "spans_ms": split[1]}
         print(f"  {label:6s} route: {ms:.3f} ms/step median of "
               f"{TRAIN_TIMED} (min {min(times):.3f}, max {max(times):.3f}) "
               f"after {TRAIN_WARMUP} warm-up steps; peak memory "
-              f"{peak:.2f} GiB; stage split (CUDA events, median of "
-              f"{TRAIN_STAGE_STEPS} steps, ms): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
-              flush=True)
+              f"{peak:.2f} GiB", flush=True)
+        print_split(split)
     print(f"  kernel / plain route step time "
           f"{res['kernel']['ms_median'] / res['plain']['ms_median']:.3f}",
           flush=True)
@@ -1548,7 +1572,7 @@ def multiscale_train_one(device, dtype_name, tmp, launches, results) -> bool:
         fm.reset_launches()
         record = []
         with sample_argmax(record):
-            _, losses, _ = train_steps(trainer, batch, 1, u=u)
+            _, losses = train_steps(trainer, batch, 1, u=u)
         out = (losses[0], {n: None if p.grad is None
                            else p.grad.detach().clone()
                            for n, p in model.named_parameters()},
@@ -1557,7 +1581,7 @@ def multiscale_train_one(device, dtype_name, tmp, launches, results) -> bool:
         if not timed:
             return out
         torch.cuda.reset_peak_memory_stats()
-        times, _, _ = train_steps(trainer, batch, timed, u=u)
+        times, _ = train_steps(trainer, batch, timed, u=u)
         return out, (statistics.median(times),
                      torch.cuda.max_memory_allocated() / 2**30)
 
@@ -1649,14 +1673,14 @@ def remat_policies(device, tmp, launches, results) -> bool:
         if remat_chunks is not None:
             force_chunking(trainer.renderer, remat_chunks)
         fm.reset_launches()
-        _, losses, _ = train_steps(trainer, batch, 1, draws=draws)
+        _, losses = train_steps(trainer, batch, 1, draws=draws)
         grads = {n: None if p.grad is None else p.grad.detach().clone()
                  for n, p in model.named_parameters()}
         counts = dict(fm.variant_launches)
         times, peak = [math.nan], math.nan
         if timed:
             torch.cuda.reset_peak_memory_stats()
-            times, _, _ = train_steps(trainer, batch, MS_TIMED, draws=draws)
+            times, _ = train_steps(trainer, batch, MS_TIMED, draws=draws)
             peak = torch.cuda.max_memory_allocated() / 2**30
         out = (losses[0], grads, counts, statistics.median(times), peak,
                trainer.renderer)
@@ -2924,7 +2948,7 @@ def option_train_step(label, device, dtype_name, tmp, ns, puts, kinds):
     model.use_fused_mlp = "auto"
     train_steps(trainer, batch, 1, draws=draws)
     torch.cuda.reset_peak_memory_stats()
-    times, _, _ = train_steps(trainer, batch, OPTION_TRAIN_TIMED,
+    times, _ = train_steps(trainer, batch, OPTION_TRAIN_TIMED,
                               draws=draws)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {label} {dtype_name}: {statistics.median(times):.3f} ms/step "
@@ -3220,7 +3244,7 @@ def par_step(device, dtype_name, tmp, mesh=None):
     R = conf.get_int("yolo.ray_batch_size")
     u = torch.rand((R, renderer.n_coarse), device=device,
                    generator=torch.Generator(device=device).manual_seed(5))
-    _, losses, _ = train_steps(trainer, batch, 1, u=u)
+    _, losses = train_steps(trainer, batch, 1, u=u)
     group = parallel.model_group(model)
     grads = {n: None if p.grad is None else parallel.gather_tp(
         p.grad.detach(), parallel._tp_dim(n, p.grad.ndim), group).cpu()
@@ -3367,7 +3391,7 @@ def par_rank(rank, world, store, ref_path, out_path):
             step_launches = dict(fm.variant_launches)
             cmp = par_compare((losses, grads), refs[dtype_name])
             torch.cuda.reset_peak_memory_stats()
-            times, _, _ = train_steps(trainer, batch, PAR_TIMED[mp], u=u)
+            times, _ = train_steps(trainer, batch, PAR_TIMED[mp], u=u)
             shard = tuple(dict(trainer.model.named_parameters())[
                 "mlp_coarse.blocks.0.fc_0.weight"].shape)
             res["steps"][label] = {

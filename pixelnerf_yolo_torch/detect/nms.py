@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..losses.yolo import iou_xywh
+from ..utils.profiling import count, scope
 
 # rounds of the greedy loop between two looks (one host sync) at whether
 # any box is left
@@ -27,34 +28,40 @@ def nms_padded(boxes: torch.Tensor, iou_threshold: float,
       have score <= score_threshold
     :return (kept (max_out, 6), valid (max_out,) bool); with no boxes
       (N = 0) nothing is kept (the JAX package's nms_padded raises there)
+
+    The rounds the loop ran count as ``nms_rounds`` (utils/profiling.py).
     """
-    n = boxes.shape[0]
-    if n == 0:
-        return (boxes.new_zeros((max_out, 6)),
-                torch.zeros(max_out, dtype=torch.bool, device=boxes.device))
-    scores = boxes[:, 1]
-    wh_ok = ((boxes[:, 4] > 10e-4) & (boxes[:, 4] < 10e4)
-             & (boxes[:, 5] > 10e-4) & (boxes[:, 5] < 10e4))
-    alive = (scores > score_threshold) & wh_ok
-    ious = iou_xywh(boxes[:, None, 2:6], boxes[None, :, 2:6])  # (N, N)
-    arange = torch.arange(n, device=boxes.device)
-    neg_inf = torch.tensor(-float("inf"), dtype=scores.dtype,
-                           device=boxes.device)
-    kept_idx = torch.zeros(max_out, dtype=torch.long, device=boxes.device)
-    kept_valid = torch.zeros(max_out, dtype=torch.bool, device=boxes.device)
-    for step in range(max_out):
-        # once no box is alive every later round keeps nothing (row 0,
-        # invalid): stop there, looking every STOP_CHECK rounds
-        if step % STOP_CHECK == 0 and not bool(alive.any()):
-            break
-        masked = torch.where(alive, scores, neg_inf)
-        best = torch.argmax(masked)
-        valid = masked[best] > neg_inf
-        kept_idx[step] = torch.where(valid, best, 0)
-        kept_valid[step] = valid
-        suppress = (ious[best] > iou_threshold) | (arange == best)
-        alive = alive & (~suppress | ~valid)
-    return boxes[kept_idx], kept_valid
+    with scope("nms_padded"):
+        n = boxes.shape[0]
+        dev = boxes.device
+        if n == 0:
+            return (boxes.new_zeros((max_out, 6)),
+                    torch.zeros(max_out, dtype=torch.bool, device=dev))
+        scores = boxes[:, 1]
+        wh_ok = ((boxes[:, 4] > 10e-4) & (boxes[:, 4] < 10e4)
+                 & (boxes[:, 5] > 10e-4) & (boxes[:, 5] < 10e4))
+        alive = (scores > score_threshold) & wh_ok
+        ious = iou_xywh(boxes[:, None, 2:6], boxes[None, :, 2:6])  # (N, N)
+        arange = torch.arange(n, device=dev)
+        neg_inf = torch.tensor(-float("inf"), dtype=scores.dtype, device=dev)
+        kept_idx = torch.zeros(max_out, dtype=torch.long, device=dev)
+        kept_valid = torch.zeros(max_out, dtype=torch.bool, device=dev)
+        rounds = 0
+        for step in range(max_out):
+            # once no box is alive every later round keeps nothing (row 0,
+            # invalid): stop there, looking every STOP_CHECK rounds
+            if step % STOP_CHECK == 0 and not bool(alive.any()):
+                break
+            rounds += 1
+            masked = torch.where(alive, scores, neg_inf)
+            best = torch.argmax(masked)
+            valid = masked[best] > neg_inf
+            kept_idx[step] = torch.where(valid, best, 0)
+            kept_valid[step] = valid
+            suppress = (ious[best] > iou_threshold) | (arange == best)
+            alive = alive & (~suppress | ~valid)
+        count("nms_rounds", rounds)
+        return boxes[kept_idx], kept_valid
 
 
 def decode_cells(predictions: torch.Tensor, anchors: torch.Tensor,
@@ -65,28 +72,31 @@ def decode_cells(predictions: torch.Tensor, anchors: torch.Tensor,
     :param predictions (B, h, w, A, 6|7); anchors (A, 2)
     :return (B, h*w*A, 6) rows [class, score, x, y, w, h]
     """
-    B, h, w, A = predictions.shape[:4]
-    dt, dev = predictions.dtype, predictions.device
-    box = predictions[..., 1:5]
-    scores = predictions[..., 0:1]
-    if is_predictions:
-        anc = torch.as_tensor(anchors, dtype=dt, device=dev).reshape(
-            1, 1, 1, A, 2)
-        xy = torch.sigmoid(box[..., 0:2])
-        wh = torch.exp(box[..., 2:4]) * anc
-        best_class = torch.argmax(predictions[..., 5:], dim=-1)[
-            ..., None].to(dt)
-    else:
-        xy = box[..., 0:2]
-        wh = box[..., 2:4]
-        best_class = predictions[..., 5:6]
-    cell_x = torch.arange(w, dtype=dt, device=dev)[None, None, :, None, None]
-    cell_y = torch.arange(h, dtype=dt, device=dev)[None, :, None, None, None]
-    x = (xy[..., 0:1] + cell_x) / w
-    y = (xy[..., 1:2] + cell_y) / h
-    wh = wh / torch.tensor([w, h], dtype=dt, device=dev)
-    out = torch.cat([best_class, scores, x, y, wh], dim=-1)
-    return out.reshape(B, h * w * A, 6)
+    with scope("decode_cells"):
+        B, h, w, A = predictions.shape[:4]
+        dt, dev = predictions.dtype, predictions.device
+        box = predictions[..., 1:5]
+        scores = predictions[..., 0:1]
+        if is_predictions:
+            anc = torch.as_tensor(anchors, dtype=dt, device=dev).reshape(
+                1, 1, 1, A, 2)
+            xy = torch.sigmoid(box[..., 0:2])
+            wh = torch.exp(box[..., 2:4]) * anc
+            best_class = torch.argmax(predictions[..., 5:], dim=-1)[
+                ..., None].to(dt)
+        else:
+            xy = box[..., 0:2]
+            wh = box[..., 2:4]
+            best_class = predictions[..., 5:6]
+        cell_x = torch.arange(w, dtype=dt, device=dev)[
+            None, None, :, None, None]
+        cell_y = torch.arange(h, dtype=dt, device=dev)[
+            None, :, None, None, None]
+        x = (xy[..., 0:1] + cell_x) / w
+        y = (xy[..., 1:2] + cell_y) / h
+        wh = wh / torch.tensor([w, h], dtype=dt, device=dev)
+        out = torch.cat([best_class, scores, x, y, wh], dim=-1)
+        return out.reshape(B, h * w * A, 6)
 
 
 def tp_fp_fn_padded(target_boxes: torch.Tensor, pred_boxes: torch.Tensor,

@@ -265,77 +265,80 @@ class PixelNeRF(nn.Module):
           spatial latent; the global encoder's gradient flows either way,
           as in the JAX package); the int8 serving modes off
         """
-        dev = self.device
-        f32 = torch.float32
-        images = torch.as_tensor(images, dtype=f32, device=dev)
-        poses = torch.as_tensor(poses, dtype=f32, device=dev)
-        if images.ndim == 5:
-            num_views_per_obj = images.shape[1]
-            images = images.reshape((-1,) + tuple(images.shape[2:]))
-            poses = poses.reshape(-1, 4, 4)
-        else:
-            num_views_per_obj = 1
+        with scope("encode"):
+            dev = self.device
+            f32 = torch.float32
+            images = torch.as_tensor(images, dtype=f32, device=dev)
+            poses = torch.as_tensor(poses, dtype=f32, device=dev)
+            if images.ndim == 5:
+                num_views_per_obj = images.shape[1]
+                images = images.reshape((-1,) + tuple(images.shape[2:]))
+                poses = poses.reshape(-1, 4, 4)
+            else:
+                num_views_per_obj = 1
 
-        x = images.permute(0, 2, 3, 1)
-        if self.stop_encoder_grad:
-            with torch.no_grad():
-                latent = self.encoder(x)  # (B, Hl, Wl, C)
-        else:
-            latent = self.encoder(x, train=train)
-        B, Hl, Wl, C = latent.shape
-        latent_flat = latent.reshape(B, Hl * Wl, C).to(self.compute_dtype)
-        latent_scales = None
-        if self.latent_int8 and not train:
-            latent_flat, latent_scales = quantize_rows_int8(latent_flat)
-        latent_projected = self._preprojects(num_views_per_obj)
-        if latent_projected:
-            # bilinear interpolation commutes with the lin_z product: the
-            # table is projected once (the lin_z weights still get their
-            # gradient through it; a frozen encoder's table is detached)
-            mlp = self.mlp_coarse
-            w_cat = torch.cat([m.weight for m in mlp.lin_z])
-            lat = latent_flat.detach() if self.stop_encoder_grad \
-                else latent_flat
-            latent_flat = F.linear(lat, w_cat.to(self.compute_dtype))
+            x = images.permute(0, 2, 3, 1)
+            if self.stop_encoder_grad:
+                with torch.no_grad():
+                    latent = self.encoder(x)  # (B, Hl, Wl, C)
+            else:
+                latent = self.encoder(x, train=train)
+            B, Hl, Wl, C = latent.shape
+            latent_flat = latent.reshape(B, Hl * Wl, C).to(self.compute_dtype)
+            latent_scales = None
+            if self.latent_int8 and not train:
+                latent_flat, latent_scales = quantize_rows_int8(latent_flat)
+            latent_projected = self._preprojects(num_views_per_obj)
+            if latent_projected:
+                # bilinear interpolation commutes with the lin_z product: the
+                # table is projected once (the lin_z weights still get their
+                # gradient through it; a frozen encoder's table is detached)
+                mlp = self.mlp_coarse
+                w_cat = torch.cat([m.weight for m in mlp.lin_z])
+                lat = latent_flat.detach() if self.stop_encoder_grad \
+                    else latent_flat
+                latent_flat = F.linear(lat, w_cat.to(self.compute_dtype))
 
-        if self.yolo:
-            w2c = poses[:, :3, :4]
-        else:
-            rot = poses[:, :3, :3].transpose(1, 2)  # R^T
-            trans = -torch.einsum("bij,bj->bi", rot, poses[:, :3, 3])
-            w2c = torch.cat([rot, trans[..., None]], dim=-1)
+            if self.yolo:
+                w2c = poses[:, :3, :4]
+            else:
+                rot = poses[:, :3, :3].transpose(1, 2)  # R^T
+                trans = -torch.einsum("bij,bj->bi", rot, poses[:, :3, 3])
+                w2c = torch.cat([rot, trans[..., None]], dim=-1)
 
-        image_size = torch.tensor([images.shape[-1], images.shape[-2]],
-                                  dtype=f32, device=dev)
-        focal = torch.as_tensor(focal, dtype=f32, device=dev)
-        if focal.ndim == 0:
-            focal = focal[None, None].expand(1, 2)
-        elif focal.ndim == 1:
-            focal = focal[:, None].expand(focal.shape[0], 2)
-        if not self.yolo:
-            focal = focal * torch.tensor([1.0, -1.0], dtype=f32, device=dev)
+            image_size = torch.tensor([images.shape[-1], images.shape[-2]],
+                                      dtype=f32, device=dev)
+            focal = torch.as_tensor(focal, dtype=f32, device=dev)
+            if focal.ndim == 0:
+                focal = focal[None, None].expand(1, 2)
+            elif focal.ndim == 1:
+                focal = focal[:, None].expand(focal.shape[0], 2)
+            if not self.yolo:
+                focal = focal * torch.tensor([1.0, -1.0], dtype=f32,
+                                             device=dev)
 
-        if c is None:
-            c = (image_size * 0.5)[None]
-        else:
-            c = torch.as_tensor(c, dtype=f32, device=dev)
-            if c.ndim == 0:
-                c = c[None, None].expand(1, 2)
-            elif c.ndim == 1:
-                c = c[None] if c.shape[0] == 2 else c[:, None].expand(
-                    c.shape[0], 2)
-        global_latent = None
-        if self.global_encoder is not None:
-            global_latent = self.global_encoder(
-                x, train=train and not self.stop_encoder_grad)
-        return CondState(
-            latent_flat=latent_flat, latent_hw=(Hl, Wl), poses=w2c,
-            focal=focal, c=c, image_size=image_size,
-            num_views_per_obj=num_views_per_obj, latent_scales=latent_scales,
-            latent_projected=latent_projected,
-            mlp_int8=self.mlp_int8 and not train,
-            global_latent=global_latent,
-        )
+            if c is None:
+                c = (image_size * 0.5)[None]
+            else:
+                c = torch.as_tensor(c, dtype=f32, device=dev)
+                if c.ndim == 0:
+                    c = c[None, None].expand(1, 2)
+                elif c.ndim == 1:
+                    c = c[None] if c.shape[0] == 2 else c[:, None].expand(
+                        c.shape[0], 2)
+            global_latent = None
+            if self.global_encoder is not None:
+                global_latent = self.global_encoder(
+                    x, train=train and not self.stop_encoder_grad)
+            return CondState(
+                latent_flat=latent_flat, latent_hw=(Hl, Wl), poses=w2c,
+                focal=focal, c=c, image_size=image_size,
+                num_views_per_obj=num_views_per_obj,
+                latent_scales=latent_scales,
+                latent_projected=latent_projected,
+                mlp_int8=self.mlp_int8 and not train,
+                global_latent=global_latent,
+            )
 
     def _preprojects(self, ns: int) -> bool:
         """Whether encode pre-projects the latent table through

@@ -4,15 +4,17 @@
 The port of the JAX package's ``scripts/profile_trace.py``.  The port's
 hot path carries that package's cut points as ``record_function`` ranges
 (``utils/profiling.py``: ``model_inference``, ``renderer_composite``,
-``encoder_index``, ``resnetfc_infer``, ...).  Capture runs an operating
+``encoder_index``, ``resnetfc_infer``, ...) and its own spans beside them
+(``PORT_SPANS``: ``train_step``, ``batch_assemble``, ``yolo_loss``,
+``decode_cells``, ``nms_padded``, ...).  Capture runs an operating
 point (``operating_points.py``, at ``bench.py``'s sizes) for ``--iters``
 steady-state iterations after warm-up under ``torch.profiler`` and writes
 a Chrome trace; the reduction gives each GPU kernel (and memcpy / memset)
 to a stage:
 
 - through its correlation id to the runtime call that launched it, and
-  from there to the innermost cut-point range around that call on the
-  same thread;
+  from there to the innermost cut-point or span range around that call
+  on the same thread;
 - a launch on an autograd thread in no range there goes to the range of
   the forward op that made its graph node (the ``Sequence number`` the
   forward ``cpu_op`` and the backward ``evaluate_function`` share), as
@@ -22,6 +24,11 @@ to a stage:
 
 A trace of the CPU (``--device cpu``: no kernels) is reduced the same way
 over its outermost ops, in host time.
+
+Beside the stage table the report gives the recorder's spans of the
+traced iterations (``utils/profiling.py``: count and host ms per
+iteration, inclusive of their child spans) and its counters, among them
+``syncs:<span>``, the host-device syncs made inside each span.
 
 Capture then parse (on the card unless ``--device cpu``):
 
@@ -57,7 +64,9 @@ import subprocess
 import sys
 import time
 
-from .utils.profiling import KNOWN_SCOPES, by_stage, count_flops
+from .utils import profiling
+from .utils.profiling import (KNOWN_SCOPES, PORT_SPANS, by_stage,
+                              count_flops)
 
 # published H100 SXM peaks (dense; NVIDIA's data sheet, at 700 W): bf16
 # tensor cores, f32 outside the tensor cores
@@ -66,6 +75,8 @@ RENDERS = {"nerf": (1, 65536, False), "nerf_mv": (2, 16384, False),
            "vd": (2, 16384, True), "yolo": (3, 16384, False)}
 CONFIGS = tuple(RENDERS) + ("train_yolo", "train_nerf")
 NO_SCOPE = "(no scope)"
+# the ranges a stage is named by, innermost first
+SPANS = frozenset(KNOWN_SCOPES + PORT_SPANS)
 ITERATION = "profile_trace:iteration"  # the range around each iteration
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -298,6 +309,8 @@ def capture(point, device, iters, outdir, warmup=2) -> dict:
     before = dict(fm.variant_launches)
     with torch.profiler.profile(activities=activities(device)) as prof:
         traced = timed(point.step, device, iters, mark=True)
+    spans = span_table(profiling.records(), iters)
+    counters = {k: v / iters for k, v in profiling.counters().items()}
     launches = {k: v - before.get(k, 0)
                 for k, v in fm.variant_launches.items()
                 if v - before.get(k, 0)}
@@ -308,12 +321,25 @@ def capture(point, device, iters, outdir, warmup=2) -> dict:
     meta = {"config": point.name, "dtype": point.dtype, "iters": iters,
             "flops_by_stage": flops, "launches": launches,
             "untraced_ms": untraced, "traced_ms": traced,
+            "spans": spans, "counters": counters,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
             "nvidia_smi": _nvidia_smi() if dev.type == "cuda" else None}
     with open(path + ".meta.json", "w") as f:
         json.dump(meta, f, indent=1)
     return dict(meta, trace=path)
+
+
+def span_table(records, iters=1) -> dict:
+    """{name: [count, host ms]} per iteration of the recorder's spans
+    (``utils.profiling.records()``), each span's ms inclusive of its
+    children."""
+    out = collections.defaultdict(lambda: [0.0, 0.0])
+    for r in records:
+        if r.end:
+            out[r.name][0] += 1 / iters
+            out[r.name][1] += (r.end - r.start) / 1e6 / iters
+    return dict(out)
 
 
 # -- reduction -----------------------------------------------------------------
@@ -378,7 +404,7 @@ def attribute(events):
     where = "device"
     scopes = collections.defaultdict(list)
     for e in xs:
-        if e.get("name") in KNOWN_SCOPES and e.get("cat") == "user_annotation":
+        if e.get("name") in SPANS and e.get("cat") == "user_annotation":
             scopes[e["tid"]].append((*_span(e), e["name"]))
     # a backward node's evaluate_function range carries the sequence number
     # of the forward op that made the node (the forward ops of one thread
@@ -493,10 +519,11 @@ def reduce(events, iters=1) -> Reduction:
 
 
 def print_report(red: Reduction, flops=None, top=12, dtype="bfloat16",
-                 card=None, out=sys.stdout):
+                 card=None, out=sys.stdout, spans=None, counters=None):
     """The stage table (ms, %, launches, GFLOP, TFLOP/s per iteration),
-    the top kernels by (stage, name), busy against wall time, and the
-    peaks the TFLOP/s compare with."""
+    the top kernels by (stage, name), busy against wall time, the peaks
+    the TFLOP/s compare with, and the recorder's spans (``span_table``)
+    and counters per iteration where given."""
     flops = flops or {}
     total = red.stage_ms or 1.0
     p = lambda *a: print(*a, file=out)  # noqa: E731
@@ -531,6 +558,17 @@ def print_report(red: Reduction, flops=None, top=12, dtype="bfloat16",
     for (stage, name), (ms, n) in sorted(red.kernels.items(),
                                          key=lambda kv: -kv[1][0])[:top]:
         p(f"{ms:>10.3f}  {n:>7.1f}  {stage:<24}{name[:100]}")
+    if spans:
+        p("\n== Program spans (recorder): count and host ms per iteration, "
+          "each with its children ==")
+        for name, (n, ms) in sorted(spans.items(), key=lambda kv:
+                                    -kv[1][1]):
+            p(f"{name:<26}{n:>8.1f}{ms:>10.3f}")
+    if counters:
+        p("\n== Counters per iteration (syncs:<span>: host-device syncs "
+          "inside the span) ==")
+        for name, v in sorted(counters.items()):
+            p(f"{name:<34}{v:>10.1f}")
 
 
 def main(argv=None) -> int:
@@ -565,7 +603,8 @@ def main(argv=None) -> int:
         if not red.stages:
             sys.exit("no kernel or op events in the trace")
         print_report(red, meta.get("flops_by_stage"), args.top,
-                     meta.get("dtype", args.dtype), meta.get("nvidia_smi"))
+                     meta.get("dtype", args.dtype), meta.get("nvidia_smi"),
+                     spans=meta.get("spans"), counters=meta.get("counters"))
         return 0
 
     import torch
@@ -589,7 +628,8 @@ def main(argv=None) -> int:
           f"{statistics.median(meta['traced_ms']):.3f} ms an iteration; "
           f"kernel launches {meta['launches']}; trace {meta['trace']}")
     print_report(red, meta["flops_by_stage"], args.top, args.dtype,
-                 meta["nvidia_smi"])
+                 meta["nvidia_smi"], spans=meta["spans"],
+                 counters=meta["counters"])
     return 0
 
 

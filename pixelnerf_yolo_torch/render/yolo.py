@@ -15,6 +15,7 @@ import torch
 
 from ..ops.composite import yolo_aggregate
 from ..ops.ray_sampling import sample_coarse
+from ..utils.profiling import scope
 from .nerf import _tensor
 
 
@@ -74,38 +75,42 @@ class YoloRenderer:
 
     def render(self, model, cond, rays, generator=None, u=None):
         """``__call__`` with autograd: the training render."""
-        rays = _tensor(rays, self.device)
-        scene_axis = rays.ndim == 3
-        if not scene_axis:
-            rays = rays.reshape(1, -1, 8)
-        SB, B = rays.shape[:2]
-        A, K = self.num_anchors_per_scale, self.n_coarse
-        if u is None:
-            u = torch.rand((SB * B, K), generator=generator,
-                           device=rays.device)
-        z = sample_coarse(rays.reshape(-1, 8), K,
-                          u=_tensor(u, rays.device)).reshape(SB, B, K)
+        with scope("yolo_render"):
+            rays = _tensor(rays, self.device)
+            scene_axis = rays.ndim == 3
+            if not scene_axis:
+                rays = rays.reshape(1, -1, 8)
+            SB, B = rays.shape[:2]
+            A, K = self.num_anchors_per_scale, self.n_coarse
+            if u is None:
+                u = torch.rand((SB * B, K), generator=generator,
+                               device=rays.device)
+            z = sample_coarse(rays.reshape(-1, 8), K,
+                              u=_tensor(u, rays.device)).reshape(SB, B, K)
 
-        cb = self.chunk_rays_for(B, cond.num_views_per_obj,
-                                 cond.latent_flat.shape[-1], SB)
-        nc = -(-B // cb)
-        cb = -(-B // nc)
-        pad = nc * cb - B
-        if pad:  # pad with each scene's first ray
-            rays = torch.cat([rays, rays[:, :1].expand(SB, pad, 8)], dim=1)
-            z = torch.cat([z, z[:, :1].expand(SB, pad, K)], dim=1)
+            cb = self.chunk_rays_for(B, cond.num_views_per_obj,
+                                     cond.latent_flat.shape[-1], SB)
+            nc = -(-B // cb)
+            cb = -(-B // nc)
+            pad = nc * cb - B
+            if pad:  # pad with each scene's first ray
+                rays = torch.cat([rays, rays[:, :1].expand(SB, pad, 8)], dim=1)
+                z = torch.cat([z, z[:, :1].expand(SB, pad, K)], dim=1)
 
-        chunks = []
-        for start in range(0, nc * cb, cb):
-            r = rays[:, start:start + cb, None]  # (SB, cb, 1, 8)
-            pts = r[..., :3] + z[:, start:start + cb, :, None] * r[..., 3:6]
-            vd = r[..., 3:6].expand(SB, cb, K, 3)
-            out = model.forward(cond, pts.reshape(SB, cb * K, 3), coarse=True,
-                                viewdirs=vd.reshape(SB, cb * K, 3))
-            agg = yolo_aggregate(out.reshape(SB * cb, K, A, 7),
-                                 mode=self.aggregation,
-                                 soft_count=self.agg_soft_count,
-                                 gamma=self.agg_gamma)
-            chunks.append(agg.reshape(SB, cb, A, 7))
-        out = torch.cat(chunks, dim=1)[:, :B]
-        return out if scene_axis else out[0]
+            chunks = []
+            for start in range(0, nc * cb, cb):
+                r = rays[:, start:start + cb, None]  # (SB, cb, 1, 8)
+                pts = (r[..., :3]
+                       + z[:, start:start + cb, :, None] * r[..., 3:6])
+                vd = r[..., 3:6].expand(SB, cb, K, 3)
+                out = model.forward(cond, pts.reshape(SB, cb * K, 3),
+                                    coarse=True,
+                                    viewdirs=vd.reshape(SB, cb * K, 3))
+                with scope("yolo_aggregate"):
+                    agg = yolo_aggregate(out.reshape(SB * cb, K, A, 7),
+                                         mode=self.aggregation,
+                                         soft_count=self.agg_soft_count,
+                                         gamma=self.agg_gamma)
+                chunks.append(agg.reshape(SB, cb, A, 7))
+            out = torch.cat(chunks, dim=1)[:, :B]
+            return out if scene_axis else out[0]

@@ -47,6 +47,7 @@ from ..parallel.render import RenderParallel
 from ..utils import camera
 from ..utils.image import cmap
 from ..utils.metrics import psnr as psnr_fn
+from ..utils.profiling import scope
 from ..utils.sampling import bbox_sample
 from . import checkpoints
 from .trainer import Trainer
@@ -112,63 +113,64 @@ class PixelNeRFTrainer(Trainer):
     def _assemble(self, data, is_train, global_step):
         """numpy (src_images (SB, NS, 3, H, W), src_poses, focal, c or None,
         rays (SB, R, 8), rgb_gt (SB, R, 3), per-ray weights (SB, R))."""
-        all_images = np.asarray(data["images"])  # (SB, NV, 3, H, W)
-        SB, NV, _, H, W = all_images.shape
-        all_poses = np.asarray(data["poses"])
-        all_bboxes = data.get("bbox")
-        all_focals = np.asarray(data["focal"])
-        all_c = np.asarray(data["c"]) if "c" in data else None
+        with scope("batch_assemble"):
+            all_images = np.asarray(data["images"])  # (SB, NV, 3, H, W)
+            SB, NV, _, H, W = all_images.shape
+            all_poses = np.asarray(data["poses"])
+            all_bboxes = data.get("bbox")
+            all_focals = np.asarray(data["focal"])
+            all_c = np.asarray(data["c"]) if "c" in data else None
 
-        if self.use_bbox and global_step >= self.args.no_bbox_step:
-            self.use_bbox = False
-            print(">>> Stopped using bbox sampling @ iter", global_step)
-        if not is_train or not self.use_bbox:
-            all_bboxes = None
+            if self.use_bbox and global_step >= self.args.no_bbox_step:
+                self.use_bbox = False
+                print(">>> Stopped using bbox sampling @ iter", global_step)
+            if not is_train or not self.use_bbox:
+                all_bboxes = None
 
-        curr_nviews = self.nviews[
-            int(self._rng.integers(0, len(self.nviews)))
-        ]
-        image_ord = np.empty((SB, curr_nviews), dtype=np.int64)
+            curr_nviews = self.nviews[
+                int(self._rng.integers(0, len(self.nviews)))
+            ]
+            image_ord = np.empty((SB, curr_nviews), dtype=np.int64)
 
-        all_rgb_gt, all_rays = [], []
-        for obj_idx in range(SB):
-            images = all_images[obj_idx]
-            poses = all_poses[obj_idx]
-            focal = all_focals[obj_idx]
-            c = all_c[obj_idx] if all_c is not None else None
-            image_ord[obj_idx] = self._rng.choice(NV, curr_nviews,
-                                                  replace=False)
-            images_0to1 = images * 0.5 + 0.5
-            cam_rays = camera.gen_rays_np(
-                poses, W, H, focal, self.z_near, self.z_far, c=c
-            )  # (NV, H, W, 8)
-            rgb_gt_all = images_0to1.transpose(0, 2, 3, 1).reshape(-1, 3)
+            all_rgb_gt, all_rays = [], []
+            for obj_idx in range(SB):
+                images = all_images[obj_idx]
+                poses = all_poses[obj_idx]
+                focal = all_focals[obj_idx]
+                c = all_c[obj_idx] if all_c is not None else None
+                image_ord[obj_idx] = self._rng.choice(NV, curr_nviews,
+                                                      replace=False)
+                images_0to1 = images * 0.5 + 0.5
+                cam_rays = camera.gen_rays_np(
+                    poses, W, H, focal, self.z_near, self.z_far, c=c
+                )  # (NV, H, W, 8)
+                rgb_gt_all = images_0to1.transpose(0, 2, 3, 1).reshape(-1, 3)
 
-            if all_bboxes is not None:
-                pix = bbox_sample(np.asarray(all_bboxes[obj_idx]),
-                                  self.args.ray_batch_size, rng=self._rng)
-                pix_inds = pix[:, 0] * H * W + pix[:, 1] * W + pix[:, 2]
-            else:
-                pix_inds = self._rng.integers(
-                    0, NV * H * W, size=self.args.ray_batch_size)
-            all_rgb_gt.append(rgb_gt_all[pix_inds])
-            all_rays.append(cam_rays.reshape(-1, 8)[pix_inds])
+                if all_bboxes is not None:
+                    pix = bbox_sample(np.asarray(all_bboxes[obj_idx]),
+                                      self.args.ray_batch_size, rng=self._rng)
+                    pix_inds = pix[:, 0] * H * W + pix[:, 1] * W + pix[:, 2]
+                else:
+                    pix_inds = self._rng.integers(
+                        0, NV * H * W, size=self.args.ray_batch_size)
+                all_rgb_gt.append(rgb_gt_all[pix_inds])
+                all_rays.append(cam_rays.reshape(-1, 8)[pix_inds])
 
-        rays = np.stack(all_rays)  # (SB, R, 8)
-        rgb_gt = np.stack(all_rgb_gt)  # (SB, R, 3)
-        src_images = all_images[np.arange(SB)[:, None], image_ord]
-        src_poses = all_poses[np.arange(SB)[:, None], image_ord]
-        # pad to the mesh's ray multiple with rays of weight 0 (one device
-        # pads none), the indices wrapped when the pad outnumbers the rays
-        w = np.ones(rays.shape[:2], dtype=np.float32)
-        pad_r = (-rays.shape[1]) % self._ray_multiple(SB)
-        if pad_r:
-            idx = np.arange(pad_r) % rays.shape[1]
-            rays = np.concatenate([rays, rays[:, idx]], axis=1)
-            rgb_gt = np.concatenate([rgb_gt, rgb_gt[:, idx]], axis=1)
-            w = np.concatenate(
-                [w, np.zeros((SB, pad_r), np.float32)], axis=1)
-        return src_images, src_poses, all_focals, all_c, rays, rgb_gt, w
+            rays = np.stack(all_rays)  # (SB, R, 8)
+            rgb_gt = np.stack(all_rgb_gt)  # (SB, R, 3)
+            src_images = all_images[np.arange(SB)[:, None], image_ord]
+            src_poses = all_poses[np.arange(SB)[:, None], image_ord]
+            # pad to the mesh's ray multiple with rays of weight 0 (one device
+            # pads none), the indices wrapped when the pad outnumbers the rays
+            w = np.ones(rays.shape[:2], dtype=np.float32)
+            pad_r = (-rays.shape[1]) % self._ray_multiple(SB)
+            if pad_r:
+                idx = np.arange(pad_r) % rays.shape[1]
+                rays = np.concatenate([rays, rays[:, idx]], axis=1)
+                rgb_gt = np.concatenate([rgb_gt, rgb_gt[:, idx]], axis=1)
+                w = np.concatenate(
+                    [w, np.zeros((SB, pad_r), np.float32)], axis=1)
+            return src_images, src_poses, all_focals, all_c, rays, rgb_gt, w
 
     # -- losses and the update -----------------------------------------------
 
@@ -192,11 +194,9 @@ class PixelNeRFTrainer(Trainer):
             src_images, src_poses, focal = (
                 src_images[scenes], src_poses[scenes], focal[scenes])
             c = c[scenes] if c is not None else None
-        self._mark("start")
         with synced_batch_norm(bn_group):
             cond = self.model.encode(src_images, src_poses, focal, c=c,
                                      train=train)
-        self._mark("encoder")
         if self.mesh is not None:
             if draws is None:
                 draws = self.renderer.batch_draws(
@@ -209,18 +209,17 @@ class PixelNeRFTrainer(Trainer):
         out = self.renderer.render(
             self.model, cond, rays, generator=self._gen, draws=draws,
             train=train)
-        self._mark("render")
-        rc = weighted_rgb_loss(self.rgb_coarse_crit, out["coarse"]["rgb"],
-                               rgb_gt, w, w_total)
-        loss = rc * self.lambda_coarse
-        loss_dict = {"rc": loss}
-        if "fine" in out:
-            rf = weighted_rgb_loss(self.rgb_fine_crit, out["fine"]["rgb"],
-                                   rgb_gt, w, w_total)
-            loss = loss + rf * self.lambda_fine
-            loss_dict["rf"] = rf * self.lambda_fine
-        loss_dict["t"] = loss
-        self._mark("loss")
+        with scope("nerf_loss"):
+            rc = weighted_rgb_loss(self.rgb_coarse_crit,
+                                   out["coarse"]["rgb"], rgb_gt, w, w_total)
+            loss = rc * self.lambda_coarse
+            loss_dict = {"rc": loss}
+            if "fine" in out:
+                rf = weighted_rgb_loss(self.rgb_fine_crit, out["fine"]["rgb"],
+                                       rgb_gt, w, w_total)
+                loss = loss + rf * self.lambda_fine
+                loss_dict["rf"] = rf * self.lambda_fine
+            loss_dict["t"] = loss
         return loss, self.reduce_losses(
             {k: v.detach() for k, v in loss_dict.items()})
 
@@ -236,12 +235,12 @@ class PixelNeRFTrainer(Trainer):
         total, loss_dict = self.compute_losses(*inputs, train=True,
                                                draws=draws)
         self.backward_and_step(total)
-        self._mark("adam")
         return loss_dict
 
     def train_step(self, data, global_step=0, draws=None):
-        return self.calc_losses(data, is_train=True, global_step=global_step,
-                                draws=draws)
+        with scope("train_step"):
+            return self.calc_losses(data, is_train=True,
+                                    global_step=global_step, draws=draws)
 
     def eval_step(self, data, global_step=0, draws=None):
         return self.calc_losses(data, is_train=False,

@@ -157,9 +157,6 @@ class Trainer:
         # (assembled inputs, draws) of the latest train update, which
         # ``update_cost_analysis`` runs again
         self._last_update = None
-        # when a list, train steps append (stage, CUDA event) at the end of
-        # each stage (``_mark``): the stage split of a step on the card
-        self.stage_events = None
 
         self.iter_state_path = osp.join(
             args.checkpoints_path, args.name, "_iter"
@@ -260,7 +257,6 @@ class Trainer:
         if self._accum == 0:
             self.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        self._mark("backward")
         self._accum += 1
         if self._accum < self.accu_grad:
             return
@@ -306,9 +302,9 @@ class Trainer:
         grads = [(p, p.grad) for p in self.model.parameters()]
         opt = copy.deepcopy(self.optimizer.state_dict())
         gen = self._gen.get_state() if hasattr(self, "_gen") else None
-        kept = (self._accum, self.accu_grad, self.stage_events,
+        kept = (self._accum, self.accu_grad,
                 copy.deepcopy(getattr(self, "renderer_sched_state", None)))
-        self._accum, self.accu_grad, self.stage_events = 0, 1, None
+        self._accum, self.accu_grad = 0, 1
 
         def update():
             total, _ = self.compute_losses(*inputs, train=True, **draws)
@@ -323,16 +319,10 @@ class Trainer:
             self.optimizer.load_state_dict(opt)
             if gen is not None:
                 self._gen.set_state(gen)
-            self._accum, self.accu_grad, self.stage_events, sched = kept
+            self._accum, self.accu_grad, sched = kept
             if sched is not None:
                 self.renderer_sched_state = sched
         return {"flops": float(sum(counts.values()))}
-
-    def _mark(self, stage: str) -> None:
-        if self.stage_events is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.stage_events.append((stage, ev))
 
     def current_lr(self, epoch: int) -> float:
         return self.base_lr * (self.gamma**epoch)

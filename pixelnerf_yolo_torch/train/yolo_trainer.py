@@ -62,6 +62,7 @@ from ..losses.yolo import YoloLoss
 from ..parallel.collectives import synced_batch_norm
 from ..parallel.render import RenderParallel
 from ..utils import camera
+from ..utils.profiling import scope
 from . import checkpoints
 from .nerf_trainer import PixelNeRFTrainer
 from .trainer import Trainer
@@ -149,72 +150,74 @@ class YOLOTrainer(Trainer):
     def _assemble(self, data):
         """numpy (src_images, src_poses, focal, c, rays (SB, k, R, 8),
         targets (SB, k, R, A, 6), chunk anchors (k, A, 2), n_real)."""
-        all_images = np.asarray(data["images"])  # (SB, NV, 3, H, W)
-        all_poses = np.asarray(data["poses"])  # (SB, NV, 4, 4)
-        all_bboxes = data["bboxes"]  # NV list of num_scales tuples, (SB,...)
-        all_focals = np.asarray(data["focal"])  # (SB, 2)
-        all_c = np.asarray(data["c"])  # (SB, 2)
-        SB, NV, _, H, W = all_images.shape
+        with scope("batch_assemble"):
+            all_images = np.asarray(data["images"])  # (SB, NV, 3, H, W)
+            all_poses = np.asarray(data["poses"])  # (SB, NV, 4, 4)
+            # NV list of num_scales tuples, (SB, ...)
+            all_bboxes = data["bboxes"]
+            all_focals = np.asarray(data["focal"])  # (SB, 2)
+            all_c = np.asarray(data["c"])  # (SB, 2)
+            SB, NV, _, H, W = all_images.shape
 
-        curr_nviews = self.nviews[
-            int(self._rng.integers(0, len(self.nviews)))
-        ]
-        image_ord = np.empty((SB, curr_nviews), dtype=np.int64)
-        R = self.ray_batch_size
-        scene_rays, scene_targets = [], []
-        scale_list = None
-        for scene_idx in range(SB):
-            image_ord[scene_idx] = self._rng.choice(
-                NV, curr_nviews, replace=False
-            )
-            rays_list, targets_list, scales = [], [], []
-            for scale_idx in range(self.num_scales):
-                bboxes_at_scale = np.stack(
-                    [np.asarray(all_bboxes[i][scale_idx])[scene_idx]
-                     for i in range(len(all_bboxes))]
-                )  # (NV, Hs, Ws, A, 6)
-                rays, targets = self._scale_rays_targets(
-                    all_poses[scene_idx], bboxes_at_scale,
-                    all_focals[scene_idx], all_c[scene_idx], H, W,
-                    scale_idx, image_ord[scene_idx],
+            curr_nviews = self.nviews[
+                int(self._rng.integers(0, len(self.nviews)))
+            ]
+            image_ord = np.empty((SB, curr_nviews), dtype=np.int64)
+            R = self.ray_batch_size
+            scene_rays, scene_targets = [], []
+            scale_list = None
+            for scene_idx in range(SB):
+                image_ord[scene_idx] = self._rng.choice(
+                    NV, curr_nviews, replace=False
                 )
-                # whole chunks per scale, padded with the first ray and
-                # ignore-flag targets
-                pad = (-rays.shape[0]) % R
-                if pad:
-                    rays = np.concatenate(
-                        [rays, np.repeat(rays[:1], pad, 0)], 0)
-                    pad_t = np.zeros((pad,) + targets.shape[1:],
-                                     dtype=targets.dtype)
-                    pad_t[..., 0] = -1.0
-                    targets = np.concatenate([targets, pad_t], 0)
-                rays_list.append(rays)
-                targets_list.append(targets)
-                scales.extend([scale_idx] * (rays.shape[0] // R))
-            scene_rays.append(np.concatenate(rays_list, axis=0))
-            scene_targets.append(np.concatenate(targets_list, axis=0))
-            scale_list = scales  # the same for every scene (same NV, H, W)
+                rays_list, targets_list, scales = [], [], []
+                for scale_idx in range(self.num_scales):
+                    bboxes_at_scale = np.stack(
+                        [np.asarray(all_bboxes[i][scale_idx])[scene_idx]
+                         for i in range(len(all_bboxes))]
+                    )  # (NV, Hs, Ws, A, 6)
+                    rays, targets = self._scale_rays_targets(
+                        all_poses[scene_idx], bboxes_at_scale,
+                        all_focals[scene_idx], all_c[scene_idx], H, W,
+                        scale_idx, image_ord[scene_idx],
+                    )
+                    # whole chunks per scale, padded with the first ray and
+                    # ignore-flag targets
+                    pad = (-rays.shape[0]) % R
+                    if pad:
+                        rays = np.concatenate(
+                            [rays, np.repeat(rays[:1], pad, 0)], 0)
+                        pad_t = np.zeros((pad,) + targets.shape[1:],
+                                         dtype=targets.dtype)
+                        pad_t[..., 0] = -1.0
+                        targets = np.concatenate([targets, pad_t], 0)
+                    rays_list.append(rays)
+                    targets_list.append(targets)
+                    scales.extend([scale_idx] * (rays.shape[0] // R))
+                scene_rays.append(np.concatenate(rays_list, axis=0))
+                scene_targets.append(np.concatenate(targets_list, axis=0))
+                scale_list = scales  # the same for every scene (same NV, H, W)
 
-        rays = np.stack(scene_rays)  # (SB, k*R, 8)
-        targets = np.stack(scene_targets)
-        k = rays.shape[1] // R
-        rays = rays.reshape(SB, k, R, 8)
-        targets = targets.reshape(SB, k, R, self.num_anchors_per_scale, 6)
-        chunk_anchors = self.anchors[np.asarray(scale_list)]  # (k, A, 2)
-        # pad every chunk to the mesh's ray multiple with ignore-flag rows
-        # (one device pads none), the indices wrapped
-        pad_c = (-R) % self._ray_multiple(SB)
-        if pad_c:
-            idx = np.arange(pad_c) % R
-            rays = np.concatenate([rays, rays[:, :, idx]], axis=2)
-            pad_t = np.zeros((SB, k, pad_c) + targets.shape[3:],
-                             targets.dtype)
-            pad_t[..., 0] = -1.0
-            targets = np.concatenate([targets, pad_t], axis=2)
-        src_images = all_images[np.arange(SB)[:, None], image_ord]
-        src_poses = all_poses[np.arange(SB)[:, None], image_ord]
-        return (src_images, src_poses, all_focals, all_c, rays, targets,
-                chunk_anchors, SB * k)
+            rays = np.stack(scene_rays)  # (SB, k*R, 8)
+            targets = np.stack(scene_targets)
+            k = rays.shape[1] // R
+            rays = rays.reshape(SB, k, R, 8)
+            targets = targets.reshape(SB, k, R, self.num_anchors_per_scale, 6)
+            chunk_anchors = self.anchors[np.asarray(scale_list)]  # (k, A, 2)
+            # pad every chunk to the mesh's ray multiple with ignore-flag rows
+            # (one device pads none), the indices wrapped
+            pad_c = (-R) % self._ray_multiple(SB)
+            if pad_c:
+                idx = np.arange(pad_c) % R
+                rays = np.concatenate([rays, rays[:, :, idx]], axis=2)
+                pad_t = np.zeros((SB, k, pad_c) + targets.shape[3:],
+                                 targets.dtype)
+                pad_t[..., 0] = -1.0
+                targets = np.concatenate([targets, pad_t], axis=2)
+            src_images = all_images[np.arange(SB)[:, None], image_ord]
+            src_poses = all_poses[np.arange(SB)[:, None], image_ord]
+            return (src_images, src_poses, all_focals, all_c, rays, targets,
+                    chunk_anchors, SB * k)
 
     # -- losses and the update -----------------------------------------------
 
@@ -251,29 +254,28 @@ class YOLOTrainer(Trainer):
                 src_images[scenes], src_poses[scenes], focal[scenes],
                 c[scenes])
             SB, chunk = rays.shape[0], rays.shape[2]
-        self._mark("start")
         with synced_batch_norm(bn_group):
             cond = self.model.encode(src_images, src_poses, focal, c=c,
                                      train=train)
-        self._mark("encoder")
         render = self.renderer.render(
             self.model, cond, rays.reshape(SB, k * chunk, 8),
             generator=self._gen, u=u,
         ).reshape(SB * k, chunk, A, 7)
-        self._mark("render")
-        targets = targets.reshape(SB * k, chunk, A, 6)
-        anchors = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
-        losses = torch.stack([
-            torch.stack(self.yolo_loss(render[i], targets[i],
-                                       anchors[i % k], counts=counts[i]))
-            for i in range(SB * k)
-        ])  # (SB*k, 5)
-        # the gradient of the SUM of the chunk losses (padding chunks are
-        # all-ignore and add 0); the report averages over the real chunks
-        total = losses[:, 0].sum()
-        sums = self.reduce_losses({"sum": losses.detach().sum(dim=0)})
-        mean_losses = sums["sum"] / n_real
-        self._mark("loss")
+        with scope("yolo_loss"):
+            targets = targets.reshape(SB * k, chunk, A, 6)
+            anchors = torch.as_tensor(anchors, dtype=torch.float32,
+                                      device=dev)
+            losses = torch.stack([
+                torch.stack(self.yolo_loss(render[i], targets[i],
+                                           anchors[i % k], counts=counts[i]))
+                for i in range(SB * k)
+            ])  # (SB*k, 5)
+            # the gradient of the SUM of the chunk losses (padding chunks
+            # are all-ignore and add 0); the report averages over the real
+            # chunks
+            total = losses[:, 0].sum()
+            sums = self.reduce_losses({"sum": losses.detach().sum(dim=0)})
+            mean_losses = sums["sum"] / n_real
         return total, dict(zip(LOSS_KEYS, mean_losses))
 
     def calc_losses(self, data, is_train=True, u=None):
@@ -284,11 +286,11 @@ class YOLOTrainer(Trainer):
         self._last_update = (inputs, {"u": u})
         total, loss_dict = self.compute_losses(*inputs, train=True, u=u)
         self.backward_and_step(total)
-        self._mark("adam")
         return loss_dict
 
     def train_step(self, data, global_step=None, u=None):
-        return self.calc_losses(data, is_train=True, u=u)
+        with scope("train_step"):
+            return self.calc_losses(data, is_train=True, u=u)
 
     def eval_step(self, data, global_step=None, u=None):
         return self.calc_losses(data, is_train=False, u=u)

@@ -125,6 +125,25 @@ def test_report():
     assert "(backward)" in text
 
 
+def test_report_spans_and_counters():
+    """The recorder's spans and counters beside the stage table."""
+    from pixelnerf_yolo_torch.utils.profiling import Span
+
+    recs = [Span("train_step", 0, 4_000_000, 0, -1, 0),
+            Span("yolo_loss", 1_000_000, 2_500_000, 1, 0, 0),
+            Span("yolo_loss", 3_000_000, 0, 2, 0, 0)]  # still open
+    spans = pt.span_table(recs, iters=2)
+    assert spans == {"train_step": [0.5, 2.0], "yolo_loss": [0.5, 0.75]}
+    out = io.StringIO()
+    pt.print_report(pt.reduce(synthetic_trace()), out=out, spans=spans,
+                    counters={"syncs:yolo_loss": 1.5, "nms_rounds": 32})
+    text = out.getvalue()
+    assert "Program spans" in text and "syncs:yolo_loss" in text
+    row = next(line for line in text.splitlines()
+               if line.startswith("yolo_loss "))
+    assert row.split() == ["yolo_loss", "0.5", "0.750"]
+
+
 def test_cpu_capture_and_parse(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
