@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when its check fails:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile csrc/field_mlp_tc.cu (tensor cores: every bf16
-     mode) and csrc/field_mlp_f32.cu (CUDA cores, weights and latent
-     through a ring: every f32 mode) with one nvcc each, started together
+     mode), csrc/field_mlp_f32.cu (CUDA cores, weights and latent
+     through a ring: every f32 mode) and csrc/latent_gather.cu (the
+     bilinear latent lookup) with one nvcc each, started together
      (sm_90a); print ptxas's register, spill and shared-memory report,
      every H = 512 instantiation of each (one per mode group) apart (it
      fails when one of those spills or is missing);
@@ -15,15 +16,17 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      samples, 128x128 source views, random weights from a seed) at NS=1
      and NS=2 in bf16 and f32, through make_model / make_renderer, with the
      PE kernels (full_pe; pre_combine_pe + post_combine; bf16 on the
-     tensor cores, f32 on the CUDA-core ring); then the same renders with
+     tensor cores, f32 on the CUDA-core ring; the latent lookup through
+     the gather kernel); then the same renders with
      model.use_fused_mlp = false, compared with the kernel's;
   4. YOLO render: the YOLO flagship at full width (ELAN backbone, 1792-d
      latent, 5 x 512 ResnetFC, 21 outputs) at NS=3 in bf16, 16,384 rays of
-     a 128x128 target view, through pre_combine_pe + post_combine, then
-     plain, compared; the share of samples whose latent YOLO mode keeps;
-     the same render in f32, through pre_combine_pe + post_combine on
-     the ring kernel (which streams the 1792-d latent), compared with
-     plain;
+     a 128x128 target view, through pre_combine_pe + post_combine (its
+     32x32 bf16 tables through the one-hot form, not the gather kernel),
+     then plain, compared; the share of samples whose latent YOLO mode
+     keeps; the same render in f32, through pre_combine_pe + post_combine
+     on the ring kernel (which streams the 1792-d latent) and the gather
+     kernel, compared with plain;
   5. detection: encode 3 source views, YOLO rays on the 32-px cell grid of
      a 384x384 target view, YoloRenderer, decode_cells, nms_padded and
      tp_fp_fn_padded on the card against seeded target boxes; the same
@@ -43,7 +46,10 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      addmm chain at the first render launch's rows (TIMING_REPS launches
      per variant), beside the least
      time the card needs for that work, with TFLOP/s, kernel/bound and
-     kernel/library;
+     kernel/library; the latent gather against the plain chain it
+     replaces (bitwise) at a srn_views view's coarse and fine lookups and
+     a yolo_detect request's, its time beside its bound (the output
+     written once), the chain's and F.grid_sample's on the NCHW table;
   8. training: the YOLO trainer at bench.py's train_yolo point
      (config/flagship.py::train_yolo_conf: ELAN, 5 x 512 ResnetFC, 128
      coarse samples, NS=3 of 4 views, one chunk of 1,024 rays) on one
@@ -169,7 +175,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      f32 too), 3 iterations each under torch.profiler, each stage table
      printed with the untraced and traced medians; held: (a) the trace's
      field-MLP kernel events equal the rise of the launch counts over the
-     traced iterations, each under model_inference; (b) the stage times
+     traced iterations, each under model_inference (printed beside it:
+     where the device records sit against the iterations' synchronized
+     ends, and the launches with no device record); (b) the stage times
      sum to the device busy time within 1%, (no scope) under 5% of it in
      each render; (c) count_flops of each render through the kernels
      equals the plain render's exactly, and its kernels' share equals
@@ -206,6 +214,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+STARTED = time.perf_counter()
 
 # the operating points (scenes, datasets) live in the package
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -533,6 +543,72 @@ def check_kernels(device, render_rows, yolo_rows, conv_rows):
     return ok, results
 
 
+# the latent gather (csrc/latent_gather.cu) at the benchmark cells' lookups:
+# (tables, C, points a table) of 64 x 64 bf16 tables, zeros padding, aligned
+# corners: a srn_views view's coarse and fine passes (the fine pass looks up
+# its 32 new samples a ray, the coarse ones' latents reused), a yolo_detect
+# request
+GATHER_SHAPES = {"srn_views coarse": (1, 512, 16384 * 64),
+                 "srn_views fine": (1, 512, 16384 * 32),
+                 "yolo_detect": (3, 1792, 256 * 128)}
+GATHER_REPS = 20
+
+
+def check_gather(device):
+    """Phase 7, the latent gather: at each of GATHER_SHAPES the kernel
+    against the plain chain it replaces (bitwise), the kernel's time beside
+    its bound (the output written once at PEAK_BYTES), the chain's and
+    ``F.grid_sample``'s on the NCHW table (a yardstick only: the port never
+    calls it).  Returns (ok, {shape: result})."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixelnerf_yolo_torch.ops import grid_sample as gs
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    ok, res = True, {}
+    g = torch.Generator(device=device).manual_seed(7)
+    for label, (B, C, N) in GATHER_SHAPES.items():
+        flat = torch.randn((B, 64 * 64, C), generator=g,
+                           device=device).bfloat16()
+        # a tenth of the points outside the table
+        grid = torch.rand((B, N, 2), generator=g, device=device) * 2.2 - 1.1
+
+        def kernel():
+            return lg.latent_gather(flat, grid, 64, 64, "zeros", True)
+
+        def plain():
+            return gs._combine(flat, gs._corners(grid, 64, 64, "zeros", True),
+                               flat.dtype)
+
+        nchw = flat.view(B, 64, 64, C).permute(0, 3, 1, 2).contiguous()
+        grid4 = grid.to(flat.dtype)[:, None]
+
+        def library():
+            return F.grid_sample(nchw, grid4, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+        same = torch.equal(kernel().view(torch.int16),
+                           plain().view(torch.int16))
+        ok &= same
+        ms = time_ms(kernel, GATHER_REPS)
+        plain_ms = time_ms(plain, 3)
+        lib_ms = time_ms(library, GATHER_REPS)
+        bound_ms = B * N * C * flat.element_size() / PEAK_BYTES * 1e3
+        print(f"kernel latent_gather bfloat16 {label}: B={B} N={N} C={C} "
+              f"bitwise {'ok' if same else 'FAILED'}; kernel_ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+              f"bound_ms={bound_ms:.3f} (bytes) kernel/bound="
+              f"{ms / bound_ms:.2f}x kernel/library={ms / lib_ms:.2f}x",
+              flush=True)
+        res[label] = {"points": B * N, "channels": C, "bitwise": same,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+        del flat, grid, nchw, grid4
+        torch.cuda.empty_cache()
+    return ok, res
+
+
 # -- models and renders --------------------------------------------------
 
 
@@ -583,19 +659,38 @@ def render(models, ns, dtype_name, n_rays, device, fused: str):
     return out, time.perf_counter() - t0
 
 
+GATHER = "latent_gather/cuda"  # the latent gather's key in a path's counts
+
+
+def reset_counts():
+    """Zero the launch counts of the field kernels and the latent gather."""
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    fm.reset_launches()
+    lg.launches = 0
+
+
+def path_counts() -> dict:
+    """The launches since reset_counts(): ``field_mlp.variant_launches``
+    and, under GATHER, the latent gather's."""
+    from pixelnerf_yolo_torch.ops import field_mlp as fm
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    return {**fm.variant_launches, GATHER: lg.launches}
+
+
 def nerf_path(models, renders, device, label):
     """Kernel renders of one NeRF path; the counts are zeroed before and
     read after.  Returns (outputs, launches)."""
-    from pixelnerf_yolo_torch.ops import field_mlp as fm
-
-    fm.reset_launches()
+    reset_counts()
     outs = {}
     for ns, dtype_name, n_rays in renders:
         out, sec = render(models, ns, dtype_name, n_rays, device, "auto")
         outs[(ns, dtype_name)] = out
         print(f"render {label} NS={ns} {dtype_name:8s} rays={n_rays} "
               f"kernels: {sec:.3f} s, {n_rays / sec:.1f} rays/s", flush=True)
-    launches = dict(fm.variant_launches)
+    launches = path_counts()
     print(f"launches on the {label} path: {launches}", flush=True)
     return outs, launches
 
@@ -667,7 +762,7 @@ def kept_latent_share(model, cond, rays, n_rays=512):
 
 def launched(launches: dict, mode: str, var: str | None = None) -> int:
     """Launches of ``mode`` (of its ``var`` kernel only, when given) in a
-    path's counts (``field_mlp.variant_launches``)."""
+    path's counts (``field_mlp.variant_launches``, or path_counts())."""
     return sum(n for k, n in launches.items()
                if k.split("/")[0] == mode
                and (var is None or k.split("/")[1] == var))
@@ -697,14 +792,12 @@ def yolo_path(models, device):
     """Phase 4.  Returns (ok, bf16 launches, f32 launches, chunk rays)."""
     import torch
 
-    from pixelnerf_yolo_torch.ops import field_mlp as fm
-
     model, renderer = models["bfloat16"]
     n_rays = YOLO_SIZE * YOLO_SIZE
-    fm.reset_launches()
+    reset_counts()
     got, sec, cond, rays = yolo_render(model, renderer, n_rays, device,
                                        "auto")
-    launches = dict(fm.variant_launches)
+    launches = path_counts()
     print(f"render YOLO NS=3 bfloat16 rays={n_rays} kernels: {sec:.3f} s, "
           f"{n_rays / sec:.1f} rays/s", flush=True)
     print(f"launches on the YOLO path: {launches}", flush=True)
@@ -728,10 +821,10 @@ def yolo_path(models, device):
     # f32 at 1792-d latents: pre_combine_pe and post_combine on the ring
     # kernel (which streams the latent)
     model32, renderer32 = models["float32"]
-    fm.reset_launches()
+    reset_counts()
     out32, sec32, _, _ = yolo_render(model32, renderer32, n_rays, device,
                                      "auto")
-    launches32 = dict(fm.variant_launches)
+    launches32 = path_counts()
     print(f"render YOLO NS=3 float32 rays={n_rays} kernels: {sec32:.3f} s, "
           f"{n_rays / sec32:.1f} rays/s; launches {launches32}", flush=True)
     good = (launched(launches32, "pre_combine_pe", "cuda_core_ring") > 0
@@ -812,18 +905,17 @@ def detection_path(models, device):
     import torch
 
     from pixelnerf_yolo_torch.detect import decode_cells
-    from pixelnerf_yolo_torch.ops import field_mlp as fm
 
     model, renderer = models["bfloat16"]
     side = DET_SIZE // CELL
-    fm.reset_launches()
+    reset_counts()
     out, sec, _, _ = yolo_render(model, renderer, side * side, device, "auto",
                                  size=DET_SIZE, cell=CELL)
     A = renderer.num_anchors_per_scale
     anchors = torch.tensor(ANCHORS, device=device)
     pred = decode_cells(out.float().reshape(1, side, side, A, 7), anchors)[0]
     torch.cuda.synchronize()
-    launches = dict(fm.variant_launches)
+    launches = path_counts()
     print(f"detection: {side}x{side} cells x {A} anchors, render "
           f"{sec:.3f} s; launches on the detection path: {launches}",
           flush=True)
@@ -1091,14 +1183,14 @@ def train_one(device, dtype_name, tmp, step_launches, results) -> bool:
         for fused in ("auto", "false"):
             restart()
             model.use_fused_mlp = fused
-            fm.reset_launches()
+            reset_counts()
             record = []
             with sample_argmax(record):
                 _, losses = train_steps(trainer, batch, 1, u=u)
             route[fused] = (losses[0], {
                 n: None if p.grad is None else p.grad.detach().clone()
                 for n, p in model.named_parameters()},
-                dict(fm.variant_launches),
+                path_counts(),
                 torch.cat(record)[:len(real)].cpu().numpy())
         return route["auto"], route["false"]
 
@@ -1108,8 +1200,10 @@ def train_one(device, dtype_name, tmp, step_launches, results) -> bool:
     (lk, gk, launches, ak), (lp, gp, plain_launches, ap) = both_routes()
     step_launches[dtype_name] = launches
     var = fm.variant("pre_combine_pe", getattr(torch, dtype_name))
+    # every lookup of a step records a gradient: no gather on either route
     good = (launched(launches, "pre_combine_pe", var) > 0
             and launched(launches, "post_combine", var) > 0
+            and launches[GATHER] == 0
             and sum(plain_launches.values()) == 0)
     print(f"train {dtype_name}: launches of one kernel-route step "
           f"{launches}; plain route {plain_launches}", flush=True)
@@ -3021,10 +3115,10 @@ def options_path(device):
     models = build_models(device, puts=GLOBAL_PUTS)
     out, paths["global"] = nerf_path(models, GLOBAL_RENDERS, device,
                                      "global encoder")
-    good = sum(paths["global"].values()) == 0
-    print(f"  global encoder at use_fused_mlp = auto: "
-          f"{sum(paths['global'].values())} launches (must be 0) "
-          f"{'ok' if good else 'FAILED'}", flush=True)
+    field = sum(n for k, n in paths["global"].items() if k != GATHER)
+    good = field == 0
+    print(f"  global encoder at use_fused_mlp = auto: {field} field-MLP "
+          f"launches (must be 0) {'ok' if good else 'FAILED'}", flush=True)
     ok &= good and compare_plain(models, GLOBAL_RENDERS, out, device,
                                  "global encoder")
     for dtype_name in ("bfloat16", "float32"):
@@ -3571,6 +3665,37 @@ PROFILE_ITERS = 3
 PROFILE_SUM_TOL, PROFILE_NO_SCOPE = 0.01, 0.05
 
 
+def trace_edges(events) -> dict:
+    """Where a capture's device records sit against its ITERATION ranges,
+    each of which ends after a sync: ``lead_ms`` (the first record's start
+    after the first range's), ``overhang_ms`` (the last record's end after
+    the last range's: above 0, the device's stamps run ahead of the host's),
+    and the kernel launches the runtime recorded (``launches``) with no
+    device record (``lost``), of them the ``trailing`` ones (after the
+    last launch that has a record)."""
+    from pixelnerf_yolo_torch import profile_trace as pt
+
+    ranges = [e for e in events if e.get("name") == pt.ITERATION
+              and e.get("cat") == "user_annotation"]
+    dev = [e for e in events if e.get("cat") in pt.DEVICE_CATS]
+    kept = {e.get("args", {}).get("correlation") for e in dev}
+    calls = sorted((e for e in events if e.get("cat") in pt.LAUNCH_CATS
+                    and "Launch" in e.get("name", "")
+                    and "correlation" in e.get("args", {})),
+                   key=lambda e: e["ts"])
+    held = [e["args"]["correlation"] in kept for e in calls]
+    out = {"lead_ms": None, "overhang_ms": None, "launches": len(calls),
+           "lost": held.count(False),
+           "trailing": len(held) - (max((i + 1 for i, h in enumerate(held)
+                                          if h), default=0))}
+    if ranges and dev:
+        out["lead_ms"] = (min(e["ts"] for e in dev)
+                          - min(e["ts"] for e in ranges)) / 1e3
+        out["overhang_ms"] = (max(e["ts"] + e.get("dur", 0) for e in dev)
+                              - max(e["ts"] + e["dur"] for e in ranges)) / 1e3
+    return out
+
+
 def profile_point(device, config, dtype_name, tmp):
     """Phase 17 on one operating point: capture, reduce, print, hold
     (a)-(c).  Returns (ok, the launches of its traced path)."""
@@ -3605,6 +3730,7 @@ def profile_point(device, config, dtype_name, tmp):
     rise = sum(meta["launches"].values())
     ok_a = (len(field) == rise and rise > 0
             and all(s == "model_inference" for s in field))
+    edges = trace_edges(events)
     # (b) the stage times sum to the busy time; little outside the scopes
     no_scope = red.stages.get(pt.NO_SCOPE, [0.0])[0]
     ok_b = abs(red.stage_ms - red.busy_ms) <= PROFILE_SUM_TOL * red.busy_ms
@@ -3613,7 +3739,9 @@ def profile_point(device, config, dtype_name, tmp):
         ok_b &= no_scope < PROFILE_NO_SCOPE * red.busy_ms
     print(f"  (a) field-MLP kernel events in the trace {len(field)} (stages "
           f"{sorted(set(field))}), launch counts' rise {rise} "
-          f"{meta['launches']}: {'ok' if ok_a else 'FAILED'}; (b) stages "
+          f"{meta['launches']}: {'ok' if ok_a else 'FAILED'} (the records "
+          f"against the iterations, {time.perf_counter() - STARTED:.0f} s "
+          f"into the process: {edges}); (b) stages "
           f"sum {red.stage_ms:.3f} ms vs device busy {red.busy_ms:.3f} ms "
           f"(wall {red.wall_ms:.3f} ms, idle {100 * red.idle_share:.1f}%), "
           f"(no scope) {no_scope:.3f} ms: {'ok' if ok_b else 'FAILED'}",
@@ -3812,6 +3940,18 @@ def run(device) -> bool:
     ok &= compare_plain(viewdirs, VIEWDIRS_RENDERS, vd_out, device,
                         "viewdirs")
     del vd_out
+    # every render above looks its latents up without a gradient: the
+    # gather, but for the bf16 YOLO render, whose 32 x 32 table (128-px
+    # sources) takes the one-hot form (encoder.py::_lookup: <= 1024 rows)
+    renders = {"nerf": (nerf_launches, True), "yolo": (yolo_launches, False),
+               "yolo_f32": (yolo32_launches, True),
+               "detection": (det_launches, True),
+               "viewdirs": (vd_launches, True)}
+    wrong = [k for k, (p, want) in renders.items() if bool(p[GATHER]) != want]
+    if wrong:
+        print(f"FAILED: the latent gather's route on {wrong} (launches "
+              f"{ {k: p[GATHER] for k, (p, _) in renders.items()} })")
+    ok &= not wrong
     torch.cuda.empty_cache()
 
     # row counts of the kernels' launches in the renders above: a chunk of
@@ -3846,6 +3986,8 @@ def run(device) -> bool:
 
     kok, res = check_kernels(device, render_rows, yolo_rows, conv_rows)
     ok &= kok
+    gok, gather_res = check_gather(device)
+    ok &= gok
 
     tok, train_launches, _ = train_path(device)
     ok &= tok
@@ -3915,6 +4057,13 @@ def run(device) -> bool:
             if (name, key) in res:
                 entry[label] = {k: res[(name, key)][k] for k in timed}
         kernels.append(entry)
+    # the gather's launches on the main paths (phase 7's timing left out)
+    by_path = {k: p[GATHER] for k, p in paths.items() if GATHER in p}
+    kernels.append({"name": "latent_gather", "route": "cuda",
+                    "source": "pixelnerf_yolo_torch/csrc/latent_gather.cu",
+                    "replaces": None, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "dtype": "bfloat16", "shapes": gather_res})
     print(json.dumps({"kernels": kernels}))
     return ok
 

@@ -72,7 +72,9 @@ from ..parallel.collectives import all_gather
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = {"field_mlp_tc": PACKAGE_DIR / "csrc" / "field_mlp_tc.cu",
-           "field_mlp_f32": PACKAGE_DIR / "csrc" / "field_mlp_f32.cu"}
+           "field_mlp_f32": PACKAGE_DIR / "csrc" / "field_mlp_f32.cu",
+           # the bilinear latent lookup (ops/latent_gather.py), built beside
+           "latent_gather": PACKAGE_DIR / "csrc" / "latent_gather.cu"}
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -535,9 +537,11 @@ def build() -> dict:
 
 
 def load_library() -> dict:
-    """Build and load the two libraries; check that their tiling constants
-    agree with this module's mirrors."""
+    """Build and load the libraries of SOURCES; check that the field
+    kernels' tiling constants agree with this module's mirrors."""
     if not _libraries:
+        from . import latent_gather
+
         paths = build()
         tc = bind_tc(paths["field_mlp_tc"])
         consts = ("rows_per_cta", "k_step", "stages", "cluster", "row_pad")
@@ -550,7 +554,9 @@ def load_library() -> dict:
             raise KernelBuildError("tensor-core lin_out widths disagree")
         f32 = bind_f32(paths["field_mlp_f32"])
         check_f32(f32)
-        _libraries.update(field_mlp_tc=tc, field_mlp_f32=f32)
+        _libraries.update(field_mlp_tc=tc, field_mlp_f32=f32,
+                          latent_gather=latent_gather.bind(
+                              paths["latent_gather"]))
     return _libraries
 
 

@@ -12,11 +12,22 @@ padding propagates NaN into the output, border and reflection clip NaN and
 one-hot matmul form of the bilinear combine (small bf16 tables on the YOLO
 path) with the four row gathers; ``grid_sample_nhwc_q8`` samples a
 per-channel int8 table (``quantize_rows_int8``, model.latent_int8).
+
+A bilinear lookup of a CUDA table of f32, bf16 or f16 (f32 grid) that
+records no gradient runs as one kernel (``latent_gather``,
+csrc/latent_gather.cu) with the plain chain's result, bitwise; every other
+lookup runs the plain chain (``_corners`` + ``_combine``; with a gradient,
+the f32-summed scatter-add backward of ``gather_rows``).  The recorder's
+counters ``latent_kernel_points`` and ``latent_plain_points`` count the
+points (B x N) of ``grid_sample_nhwc``'s CUDA lookups on each path.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import count
+from . import latent_gather
 
 
 def _unnormalize(coord, size: int, align_corners: bool):
@@ -175,6 +186,20 @@ def grid_sample_nhwc(
     :return (B, N, C) in flat's dtype
     """
     H, W = height, width
+    on_card = flat.is_cuda
+    if (on_card and mode == "bilinear" and not interp_matmul
+            and flat.dtype in latent_gather.DTYPES
+            # the chain does the coordinates in the grid's dtype (rcnn's
+            # grid has its features'); the kernel does them in f32
+            and grid.dtype == torch.float32
+            and not (torch.is_grad_enabled()
+                     and (flat.requires_grad or grid.requires_grad))):
+        count("latent_kernel_points", grid.numel() // 2)
+        return latent_gather.latent_gather(
+            flat.contiguous(), grid.contiguous(), H, W, padding_mode,
+            align_corners)
+    if on_card:
+        count("latent_plain_points", grid.numel() // 2)
     if mode == "bilinear":
         corners = _corners(grid, H, W, padding_mode, align_corners)
         if interp_matmul:

@@ -292,7 +292,9 @@ def capture(point, device, iters, outdir, warmup=2) -> dict:
     """Warm-up iterations; iters iterations timed without the profiler;
     one counted by ``count_flops``; then iters iterations under
     ``torch.profiler`` (CPU and, on the card, CUDA activity), each inside
-    an ``ITERATION`` range.  Writes the Chrome trace and its sidecar
+    an ``ITERATION`` range, after one more in the profiler's warm-up (its
+    records dropped: late in a long process a session's first few dozen
+    device records can go missing).  Writes the Chrome trace and its sidecar
     (``<trace>.meta.json``) into outdir and returns the sidecar's content
     (``launches``: the rise of ``field_mlp.variant_launches`` over the
     traced iterations) with ``trace``, the trace's path."""
@@ -306,8 +308,13 @@ def capture(point, device, iters, outdir, warmup=2) -> dict:
     untraced = timed(point.step, device, iters)
     flops = by_stage(count_flops(point.step)[1])
     _sync(device)
-    before = dict(fm.variant_launches)
-    with torch.profiler.profile(activities=activities(device)) as prof:
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=activities(device),
+                                schedule=schedule) as prof:
+        point.step()
+        _sync(device)
+        prof.step()
+        before = dict(fm.variant_launches)
         traced = timed(point.step, device, iters, mark=True)
     spans = span_table(profiling.records(), iters)
     counters = {k: v / iters for k, v in profiling.counters().items()}

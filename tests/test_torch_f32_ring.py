@@ -37,8 +37,8 @@ WIDTHS = {"nerf": (42, 512, 512), "viewdirs": (78, 512, 512),
 @pytest.mark.parametrize("mode", list(fm.MODES))
 def test_variant_routing(mode, dtype, want):
     """bf16 takes the tensor cores in every mode, f32 the ring kernel in
-    every mode; each variant names its own library, and the two sources
-    are the only ones built."""
+    every mode; each variant names its own library, and the two field
+    sources are built beside the latent gather's alone."""
     var = fm.variant(mode, dtype)
     assert var == want[mode]
     assert fm.LIBRARY[var] in fm.SOURCES
@@ -46,7 +46,7 @@ def test_variant_routing(mode, dtype, want):
         "tensor_core": "field_mlp_tc.cu",
         "cuda_core_ring": "field_mlp_f32.cu"}[var]
     assert sorted(p.name for p in fm.SOURCES.values()) == [
-        "field_mlp_f32.cu", "field_mlp_tc.cu"]
+        "field_mlp_f32.cu", "field_mlp_tc.cu", "latent_gather.cu"]
     assert all(p.exists() for p in fm.SOURCES.values())
 
 

@@ -539,3 +539,176 @@ def test_f32_ring_refuses_what_it_does_not_fit(cuda_device):
     with pytest.raises(ValueError, match="does not take"):
         fm.pre_combine(zf, lat, w)
     assert sum(fm.launches.values()) == 0
+
+
+# -- the latent gather (csrc/latent_gather.cu) --------------------------------
+#
+# The kernel against the plain chain it replaces (ops/grid_sample.py
+# ``_corners`` + ``_combine``) run on the card: bitwise, NaN where the chain
+# gives NaN, signed zeros included.
+
+GATHER_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+GATHER_PADS = [(p, a) for p in ("zeros", "border", "reflection")
+               for a in (True, False)]
+# the srn_views view (one table, 64 x 64 x 512 bf16; coarse 16,384 x 64
+# points, fine 16,384 x 32: the fine pass reuses the coarse samples'
+# latents) and the yolo_detect request (three 64 x 64 x
+# 1792 bf16 tables, 256 rays x 128 samples each); both zeros padding,
+# aligned corners
+GATHER_CELLS = {"srn_views_coarse": (1, 512, 16384 * 64),
+                "srn_views_fine": (1, 512, 16384 * 32),
+                "yolo_detect": (3, 1792, 256 * 128)}
+
+
+def _gather_inputs(B, H, W, C, N, dtype, device, seed=0):
+    """A (B, H*W, C) table with a few NaN and inf entries, subnormal and
+    near-overflow ones, and (B, N, 2) points: in range, out of range, on
+    the corners and edges, +-inf and NaN."""
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn((B, H * W, C), generator=g)
+    extreme = torch.finfo(dtype).max * 0.75
+    tiny = torch.finfo(dtype).smallest_normal * 0.3
+    for value in (tiny, -tiny, extreme, -extreme):
+        flat.view(-1)[torch.randint(0, flat.numel(), (9,), generator=g)] = \
+            value
+    flat.view(-1)[torch.randint(0, flat.numel(), (7,), generator=g)] = \
+        float("nan")
+    flat.view(-1)[torch.randint(0, flat.numel(), (5,), generator=g)] = \
+        float("inf")
+    flat.view(-1)[torch.randint(0, flat.numel(), (5,), generator=g)] = \
+        -float("inf")
+    grid = torch.rand((B, N, 2), generator=g) * 2.6 - 1.3
+    special = torch.tensor([-1.0, 1.0, 0.0, -1.0 - 1e-7, 1.0 + 1e-7, 7.5,
+                            -9.25, float("inf"), -float("inf"),
+                            float("nan")])
+    k = min(N, 64)
+    pick = torch.randint(0, len(special), (B, k, 2), generator=g)
+    grid[:, :k] = special[pick]
+    return flat.to(dtype).to(device), grid.to(device)
+
+
+def _gather_plain(flat, grid, H, W, padding, align):
+    from pixelnerf_yolo_torch.ops import grid_sample as gs
+
+    return gs._combine(flat, gs._corners(grid, H, W, padding, align),
+                       flat.dtype)
+
+
+def _assert_bitwise(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = {torch.float32: torch.int32}.get(ref.dtype, torch.int16)
+    diff = (got.masked_fill(nan, 0).view(bits)
+            != ref.masked_fill(nan, 0).view(bits))
+    assert not bool(diff.any()), int(diff.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (1, 3))
+@pytest.mark.parametrize("C", (128, 512, 1792, 1536, 200))
+@pytest.mark.parametrize("padding,align", GATHER_PADS)
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_latent_gather_matches_chain(cuda_device, dtype, padding, align, C,
+                                     B):
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    H, W, N = 12, 17, 1037  # a ragged N and a table that is not square
+    flat, grid = _gather_inputs(B, H, W, C, N, dtype, cuda_device, seed=C + B)
+    before = lg.launches
+    got = lg.latent_gather(flat, grid, H, W, padding, align)
+    ref = _gather_plain(flat, grid, H, W, padding, align)
+    torch.cuda.synchronize()
+    assert lg.launches == before + 1
+    _assert_bitwise(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(GATHER_CELLS))
+def test_latent_gather_cell_shapes(cuda_device, cell):
+    """grid_sample_nhwc at the benchmark cells' lookups takes the kernel
+    under no_grad and gives the chain's result."""
+    from pixelnerf_yolo_torch.ops import grid_sample as gs
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    B, C, N = GATHER_CELLS[cell]
+    flat, grid = _gather_inputs(B, 64, 64, C, N, torch.bfloat16, cuda_device)
+    before = lg.launches
+    with torch.no_grad():
+        got = gs.grid_sample_nhwc(flat, grid, 64, 64, "bilinear", "zeros",
+                                  True)
+    ref = _gather_plain(flat, grid, 64, 64, "zeros", True)
+    torch.cuda.synchronize()
+    assert lg.launches == before + 1
+    _assert_bitwise(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_latent_gather_narrow_and_unaligned(cuda_device, dtype):
+    """Narrower vectors where C or the table's address forbids 16 bytes:
+    C of 1, 3, 6 and 12, and a table that starts one element in."""
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    H, W = 5, 7
+    for C in (1, 3, 6, 12):
+        flat, grid = _gather_inputs(2, H, W, C, 301, dtype, cuda_device,
+                                    seed=C)
+        got = lg.latent_gather(flat, grid, H, W, "border", False)
+        _assert_bitwise(got, _gather_plain(flat, grid, H, W, "border",
+                                           False))
+    big, grid = _gather_inputs(2, H, W, 65, 301, dtype, cuda_device)
+    flat = big.view(-1)[1:1 + 2 * H * W * 64].view(2, H * W, 64)
+    got = lg.latent_gather(flat, grid, H, W, "zeros", True)
+    _assert_bitwise(got, _gather_plain(flat, grid, H, W, "zeros", True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_latent_gather_route(cuda_device):
+    """A lookup that records a gradient keeps the chain (the kernel does
+    not launch) and its gradient; without one the kernel launches."""
+    from pixelnerf_yolo_torch.ops import grid_sample as gs
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    flat, grid = _gather_inputs(1, 8, 8, 512, 999, torch.bfloat16,
+                                cuda_device)
+    flat = torch.nan_to_num(flat.float(), 0.0, 0.0, 0.0).bfloat16()
+    table = flat.clone().requires_grad_(True)
+    before = lg.launches
+    out = gs.grid_sample_nhwc(table, grid, 8, 8, "bilinear", "zeros", True)
+    out.float().square().sum().backward()
+    assert lg.launches == before
+    ref = flat.clone().requires_grad_(True)
+    _gather_plain(ref, grid, 8, 8, "zeros", True).float().square().sum() \
+        .backward()
+    # the same f32 scatter-add, whose atomics may sum in another order
+    torch.testing.assert_close(table.grad.float(), ref.grad.float(),
+                               rtol=1e-2, atol=1e-6, equal_nan=True)
+    with torch.no_grad():
+        got = gs.grid_sample_nhwc(table, grid, 8, 8, "bilinear", "zeros",
+                                  True)
+    assert lg.launches == before + 1
+    _assert_bitwise(got, out.detach())
+
+
+@pytest.mark.cuda
+def test_latent_gather_rejects_bad_arguments(cuda_device):
+    from pixelnerf_yolo_torch.ops import latent_gather as lg
+
+    flat, grid = _gather_inputs(2, 4, 4, 32, 10, torch.bfloat16, cuda_device)
+    bad = [
+        (flat.transpose(1, 2).contiguous().transpose(1, 2), grid),  # strides
+        (flat, grid.transpose(0, 1).contiguous().transpose(0, 1)),
+        (flat, grid.cpu()),  # wrong device
+        (flat.double(), grid),  # wrong dtypes
+        (flat.to(torch.int8), grid),
+        (flat, grid.half()),
+        (flat[:1], grid),  # shapes
+        (flat[:, :15], grid),
+    ]
+    for f, g in bad:
+        with pytest.raises(ValueError):
+            lg.latent_gather(f, g, 4, 4, "zeros", True)
+    with pytest.raises(NotImplementedError):
+        lg.latent_gather(flat, grid, 4, 4, "wrap", True)
