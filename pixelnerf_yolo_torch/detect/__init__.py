@@ -3,7 +3,13 @@ padded device NMS in torch."""
 
 # the submodule first: importing it binds the package attribute ``nms`` to
 # the module, and the host function of that name below must win
-from .nms import decode_cells, nms_padded, tp_fp_fn_padded  # noqa: I001
+from .nms import (  # noqa: I001
+    cross_scale_padded,
+    decode_cells,
+    decode_scales,
+    nms_padded,
+    tp_fp_fn_padded,
+)
 from .boxes import (
     calculate_precision_recall_f1,
     calculate_tp_fp_fn,
@@ -25,7 +31,9 @@ __all__ = [
     "calculate_precision_recall_f1",
     "calculate_tp_fp_fn",
     "convert_cells_to_bboxes",
+    "cross_scale_padded",
     "decode_cells",
+    "decode_scales",
     "draw_bounding_boxes",
     "iou",
     "map_from_raw_boxes",

@@ -129,6 +129,29 @@ def gen_rays_yolo(poses, width: int, height: int, focal, c, z_near,
     return torch.cat([origins, dirs, nears, fars], dim=-1)
 
 
+def gen_rays_yolo_scales(poses, width: int, height: int, focal, c,
+                         cell_sizes, z_near, z_far):
+    """The cell rays of every grid of a multi-scale YOLO head in one batch:
+    grid s has (height // cs) x (width // cs) cells for cs = cell_sizes[s],
+    its rays ``gen_rays_yolo`` at focal / cs and c / cs (as the trainer's
+    vis_step builds each grid), flattened in (h, w) order and concatenated
+    grid by grid.
+
+    :param poses (B, 4, 4) world-to-camera extrinsics
+    :param focal, c (fx, fy) and (cx, cy) in pixels (or scalars)
+    :return (rays (B, N, 8), grids [(h, w)] of each grid, in order: the
+      shape ``detect.nms.decode_scales`` takes)
+    """
+    parts, grids = [], []
+    for cs in cell_sizes:
+        grids.append((height // cs, width // cs))
+        r = gen_rays_yolo(poses, width // cs, height // cs,
+                          torch.as_tensor(focal) / cs,
+                          torch.as_tensor(c) / cs, z_near, z_far)
+        parts.append(r.reshape(r.shape[0], -1, 8))
+    return torch.cat(parts, dim=1), grids
+
+
 def gen_rays_np(poses, width: int, height: int, focal, z_near, z_far,
                 c=None) -> np.ndarray:
     """``gen_rays`` on the host in numpy (the NeRF trainer's batch

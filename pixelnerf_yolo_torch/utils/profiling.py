@@ -74,6 +74,7 @@ PORT_SPANS = (
     "nerf_loss",
     "decode_cells",
     "nms_padded",
+    "cross_scale_padded",
 )
 _KNOWN = frozenset(KNOWN_SCOPES)
 # the stages of ops outside every cut point: on an autograd thread (or

@@ -213,13 +213,14 @@ def test_share_readers(calls, unit):
 def test_share_metrics_in_the_benchmark():
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     per_layer = {m["name"]: m for m in bench["per_layer"]}
-    for unit, moves, cell in (("render", "rays_per_s", "srn_views"),
-                              ("detect", "view_p95_ms", "yolo_detect"),
-                              ("train", "train_steps_per_s", "yolo_train")):
+    for unit, moves, cells in (
+            ("render", "rays_per_s", ["srn_views"]),
+            ("detect", "view_p95_ms", ["yolo_detect", "yolo3s_detect"]),
+            ("train", "train_steps_per_s", ["yolo_train", "srn_train"])):
         m = per_layer[f"latent_kernel_share.{unit}"]
         assert (m["source"], m["layer"], m["moves"], m["workloads"],
                 m["unit"]) == ("program_counter", "latent lookup", moves,
-                               [cell], "%")
+                               cells, "%")
         assert per_layer[f"gather_ms.{unit}"]["layer"] == m["layer"]
 
 
