@@ -4,8 +4,9 @@ Counterpart of pixelnerf_yolo_tpu/train/nerf_trainer.py:
   * per scene, on the host: a random subset of source views, then the ray
     batch: pixels inside the scene's per-view bounding boxes until
     ``--no_bbox_step``, uniform over every view's pixels after it
-    (``_assemble``, the JAX package's numpy code, so that the same
-    Generator state gives the same views and pixels);
+    (``_assemble``: the JAX package's Generator calls, so that the same
+    Generator stream picks the same views and pixels, with rays and
+    colours built only for the drawn pixels);
   * the loss: the coarse and fine RGB criteria (``loss.rgb``, and
     ``loss.rgb_fine`` for the fine pass when the conf has it) as
     ``weighted_rgb_loss`` over the rays, weighted by lambda_coarse and
@@ -47,7 +48,7 @@ from ..parallel.render import RenderParallel
 from ..utils import camera
 from ..utils.image import cmap
 from ..utils.metrics import psnr as psnr_fn
-from ..utils.profiling import scope
+from ..utils.profiling import count, scope
 from ..utils.sampling import bbox_sample
 from . import checkpoints
 from .trainer import Trainer
@@ -135,29 +136,26 @@ class PixelNeRFTrainer(Trainer):
             all_rgb_gt, all_rays = [], []
             for obj_idx in range(SB):
                 images = all_images[obj_idx]
-                poses = all_poses[obj_idx]
-                focal = all_focals[obj_idx]
                 c = all_c[obj_idx] if all_c is not None else None
                 image_ord[obj_idx] = self._rng.choice(NV, curr_nviews,
                                                       replace=False)
-                images_0to1 = images * 0.5 + 0.5
-                cam_rays = camera.gen_rays_np(
-                    poses, W, H, focal, self.z_near, self.z_far, c=c
-                )  # (NV, H, W, 8)
-                rgb_gt_all = images_0to1.transpose(0, 2, 3, 1).reshape(-1, 3)
-
                 if all_bboxes is not None:
-                    pix = bbox_sample(np.asarray(all_bboxes[obj_idx]),
-                                      self.args.ray_batch_size, rng=self._rng)
-                    pix_inds = pix[:, 0] * H * W + pix[:, 1] * W + pix[:, 2]
+                    view, row, col = bbox_sample(
+                        np.asarray(all_bboxes[obj_idx]),
+                        self.args.ray_batch_size, rng=self._rng).T
                 else:
                     pix_inds = self._rng.integers(
                         0, NV * H * W, size=self.args.ray_batch_size)
-                all_rgb_gt.append(rgb_gt_all[pix_inds])
-                all_rays.append(cam_rays.reshape(-1, 8)[pix_inds])
+                    view, row, col = (pix_inds // (H * W),
+                                      pix_inds % (H * W) // W, pix_inds % W)
+                all_rgb_gt.append(images[view, :, row, col] * 0.5 + 0.5)
+                all_rays.append(camera.gen_rays_at_np(
+                    all_poses[obj_idx], view, row, col, W, H,
+                    all_focals[obj_idx], self.z_near, self.z_far, c=c))
 
             rays = np.stack(all_rays)  # (SB, R, 8)
             rgb_gt = np.stack(all_rgb_gt)  # (SB, R, 3)
+            count("assemble_rays", rays.shape[0] * rays.shape[1])
             src_images = all_images[np.arange(SB)[:, None], image_ord]
             src_poses = all_poses[np.arange(SB)[:, None], image_ord]
             # pad to the mesh's ray multiple with rays of weight 0 (one device

@@ -2,7 +2,8 @@
 
 Counterpart of ``gen_rays``, ``ndc_rays``, ``unproj_map``, ``_expand_focal``,
 ``gen_rays_yolo``, ``gen_rays_np`` and ``gen_rays_yolo_np`` in
-pixelnerf_yolo_tpu/utils/camera.py.  NeRF mode: an
+pixelnerf_yolo_tpu/utils/camera.py, and ``gen_rays_at_np``, the rays of
+chosen pixels only.  NeRF mode: an
 OpenGL-style camera (x right, y up, z backward) and camera-to-world poses.
 YOLO mode: world-to-camera extrinsics and a pinhole K (z forward).
 
@@ -152,15 +153,8 @@ def gen_rays_yolo_scales(poses, width: int, height: int, focal, c,
     return torch.cat(parts, dim=1), grids
 
 
-def gen_rays_np(poses, width: int, height: int, focal, z_near, z_far,
-                c=None) -> np.ndarray:
-    """``gen_rays`` on the host in numpy (the NeRF trainer's batch
-    assembly), with the JAX package's numpy arithmetic; no NDC.
-
-    :param poses (B, 4, 4) camera-to-world
-    :return (B, H, W, 8) float32
-    """
-    poses = np.asarray(poses, dtype=np.float32)
+def _expand_focal_np(focal, c, width: int, height: int):
+    """``_expand_focal`` in float32 numpy: ((fx, fy), (cx, cy))."""
     f = np.asarray(focal, dtype=np.float32).squeeze()
     if f.ndim == 0:
         f = np.stack([f, f])
@@ -172,6 +166,19 @@ def gen_rays_np(poses, width: int, height: int, focal, z_near, z_far,
         cc = np.asarray(c, dtype=np.float32).squeeze()
         if cc.ndim == 0:
             cc = np.stack([cc, cc])
+    return f, cc
+
+
+def gen_rays_np(poses, width: int, height: int, focal, z_near, z_far,
+                c=None) -> np.ndarray:
+    """``gen_rays`` on the host in numpy, with the JAX package's numpy
+    arithmetic; no NDC.
+
+    :param poses (B, 4, 4) camera-to-world
+    :return (B, H, W, 8) float32
+    """
+    poses = np.asarray(poses, dtype=np.float32)
+    f, cc = _expand_focal_np(focal, c, width, height)
     x = (np.arange(width, dtype=np.float32) - cc[0]) / f[0]
     y = (np.arange(height, dtype=np.float32) - cc[1]) / f[1]
     X, Y = np.meshgrid(x, y, indexing="xy")
@@ -187,6 +194,32 @@ def gen_rays_np(poses, width: int, height: int, focal, z_near, z_far,
     fars = np.full((B, height, width, 1), z_far, dtype=np.float32)
     return np.concatenate(
         [centers, raydirs.astype(np.float32), nears, fars], axis=-1
+    )
+
+
+def gen_rays_at_np(poses, view, row, col, width: int, height: int, focal,
+                   z_near, z_far, c=None) -> np.ndarray:
+    """The rays of some pixels only (the NeRF trainer's batch assembly):
+    ``gen_rays_np(...)[view, row, col]`` bitwise, in the same float32
+    arithmetic, without building the other pixels' rays.
+
+    :param poses (B, 4, 4) camera-to-world
+    :param view, row, col (N,) integer indices of the pixels
+    :return (N, 8) float32
+    """
+    poses = np.asarray(poses, dtype=np.float32)
+    f, cc = _expand_focal_np(focal, c, width, height)
+    x = (np.asarray(col).astype(np.float32) - cc[0]) / f[0]
+    y = (np.asarray(row).astype(np.float32) - cc[1]) / f[1]
+    unproj = np.stack([x, -y, -np.ones_like(x)], axis=-1)
+    dirs_cam = unproj / np.linalg.norm(unproj, axis=-1, keepdims=True)
+    rot = poses[view, :3, :3]
+    raydirs = np.einsum("nij,nj->ni", rot, dirs_cam)
+    n = x.shape[0]
+    nears = np.full((n, 1), z_near, dtype=np.float32)
+    fars = np.full((n, 1), z_far, dtype=np.float32)
+    return np.concatenate(
+        [poses[view, :3, 3], raydirs.astype(np.float32), nears, fars], axis=-1
     )
 
 
